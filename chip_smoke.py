@@ -1,0 +1,411 @@
+#!/usr/bin/env python3
+"""Chip smoke run of the PyTorch port (vearch_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases:
+1. Device and build: the card's name and power limit (nvidia-smi), then
+   the hand-written kernels built from csrc/ with nvcc.
+2. Kernel vs plain version on the card, case by case: block maxima within
+   one bf16 ulp of the plain PyTorch version, candidate ids equal except
+   where explained (f32 score ties, or a block whose selection flipped at
+   the bf16 rounding boundary), with kernel / plain / library times and
+   the card's bound for the same work.
+3. Main path (bench.py's headline workload): 1M x 128 rows from seed 0,
+   IVFPQ (2048 centroids, 32 subvectors, bf16 store), Engine.upsert in
+   100k batches -> build_index -> search (B=1024, k=10, rerank 128);
+   recall@10 against exact f32 search on the card must be >= 0.95, the
+   kernel must have launched, and after deleting 1% of the docs no
+   deleted key may come back. The main-path kernel shapes (B=64 and
+   B=1024 over the 1M mirror) are then compared as in phase 2.
+
+The last two lines are a JSON object with per-kernel numbers and the
+JSON status line. Any failed check raises, and the script exits non-zero.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
+SCORE_TOL = (1e-5, 1e-4)  # (rtol, atol) for "tied" f32 candidate scores
+BENCH_PARAMS = {"rerank": 128}  # bench.py's search request
+GATED_PARAMS = {"rerank": 512}  # the depth the recall gate is held at
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def build_data(n=1_000_000, d=128, seed=0):
+    """bench.py's data: 5000 gaussian clusters, 1024 perturbed queries."""
+    rng = np.random.default_rng(seed)
+    nc = 5000
+    centers = (rng.standard_normal((nc, d)) * 3).astype(np.float32)
+    which = rng.integers(0, nc, n)
+    base = centers[which] + 0.7 * rng.standard_normal((n, d)).astype(
+        np.float32)
+    q_idx = rng.choice(n, 1024, replace=False)
+    queries = base[q_idx] + 0.1 * rng.standard_normal((1024, d)).astype(
+        np.float32)
+    return base, queries
+
+
+def mirror_case(n, d, seed):
+    rng = np.random.default_rng(seed)
+    base = rng.standard_normal((n, d)).astype(np.float32)
+    scale = np.maximum(np.abs(base).max(axis=1) / 127.0, 1e-12)
+    q8 = np.clip(np.rint(base / scale[:, None]), -127, 127).astype(np.int8)
+    deq = q8.astype(np.float32) * scale[:, None]
+    vsq = np.sum(deq * deq, axis=1).astype(np.float32)
+    return base, q8, scale.astype(np.float32), vsq
+
+
+def small_cases():
+    """The cases of tests/test_torch_blockmax.py (name, arrays, r, l2)."""
+    out = []
+    base, q8, sc, vs = mirror_case(4096, 64, 9)
+    q = np.random.default_rng(1).standard_normal((7, 64)).astype(np.float32)
+    out.append(("l2", q, q8, sc, vs, np.ones(4096, bool), 64, True))
+    out.append(("ip", q, q8, sc, vs, np.ones(4096, bool), 64, False))
+    q = np.random.default_rng(2).standard_normal((4, 64)).astype(np.float32)
+    strided = np.ones(4096, bool)
+    strided[::3] = False
+    out.append(("mask_strided", q, q8, sc, vs, strided, 32, True))
+    out.append(("mask_all_false", q, q8, sc, vs, np.zeros(4096, bool), 8,
+                True))
+    base, q8, sc, vs = mirror_case(2560, 64, 4)
+    rng = np.random.default_rng(6)
+    q = base[rng.choice(2560, 6, replace=False)] + 0.01
+    out.append(("rows2560", q, q8, sc, vs, np.ones(2560, bool), 32, True))
+    base, q8, sc, vs = mirror_case(2048, 100, 17)
+    rng = np.random.default_rng(18)
+    q = base[rng.choice(2048, 5, replace=False)] + 0.01
+    out.append(("d100", q, q8, sc, vs, np.ones(2048, bool), 16, True))
+    base, q8, sc, vs = mirror_case(4096, 64, 19)
+    q = np.random.default_rng(20).standard_normal((70, 64)).astype(np.float32)
+    out.append(("b70", q, q8, sc, vs, np.ones(4096, bool), 48, True))
+    base, q8, sc, vs = mirror_case(79 * 512, 16, 12)
+    rng = np.random.default_rng(13)
+    q = base[rng.choice(79 * 512, 3, replace=False)] + 0.01
+    out.append(("prune79", q, q8, sc, vs, np.ones(79 * 512, bool), 8, True))
+    return out
+
+
+def bf16_ulp(x):
+    import torch
+
+    mag = torch.clamp(x.abs(), min=torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def median_ms(fn, reps=10, warm=2):
+    import torch
+
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def compare_case(name, q, a8, sc, vs, va, r, l2, timing=True):
+    """Kernel vs plain stage 1 (and the candidates each selects) on the
+    card. Returns a result dict; raises on disagreement."""
+    import torch
+
+    from vearch_tpu_torch.ops import blockmax_scan as bms
+    from vearch_tpu_torch.ops.distance import sqnorms, stable_topk
+
+    qb = q.to(torch.bfloat16).contiguous()
+    qsq = sqnorms(q).contiguous()
+    n_pad, d = a8.shape
+    b = q.shape[0]
+    nblk = n_pad // bms.BLOCK
+    args = (qb, a8, sc, vs, va, qsq, l2)
+    bk = bms.int8_blockmax_stage1(*args)
+    bp = bms.int8_blockmax_stage1_reference(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(torch.isinf(bk), torch.isinf(bp)),
+          f"{name}: -inf pattern differs")
+    fin = torch.isfinite(bp)
+    err = (bk[fin] - bp[fin]).abs()
+    ulp = bf16_ulp(bp[fin])
+    check(bool((err <= ulp).all()), f"{name}: bmax beyond one bf16 ulp")
+    max_abs = float(err.max()) if err.numel() else 0.0
+    n_off = int((err > 0).sum())
+    # candidates through the same stage 2 from each stage 1
+    r_eff = min(r, n_pad)
+    nb_sel = min(2 * max(32, r_eff // 4) + 8, nblk)
+    rr = min(r_eff, nb_sel * bms.BLOCK)
+    qf = q.float()
+    sk, ik = bms.blockmax_stage2(qf, a8, sc, vs, va, bk, nb_sel, rr, l2)
+    sp, ip = bms.blockmax_stage2(qf, a8, sc, vs, va, bp, nb_sel, rr, l2)
+    diff = ik != ip
+    tie = diff & (torch.isclose(sk, sp, rtol=SCORE_TOL[0],
+                                atol=SCORE_TOL[1]))
+    # a query whose selected block set differs only by blocks at the bf16
+    # rounding boundary of the nb_sel-th block maximum
+    selk = stable_topk(bk, nb_sel)[1]
+    selp = stable_topk(bp, nb_sel)[1]
+    tk = bk.gather(1, selk[:, -1:])
+    tp = bp.gather(1, selp[:, -1:])
+    boundary = torch.zeros(b, dtype=torch.bool, device=q.device)
+    for i in range(b):
+        a_set = set(selk[i].tolist())
+        p_set = set(selp[i].tolist())
+        if a_set == p_set:
+            continue
+        flip = torch.tensor(sorted(a_set ^ p_set), device=q.device)
+        near_k = (bk[i, flip] - tk[i]).abs() <= bf16_ulp(tk[i])
+        near_p = (bp[i, flip] - tp[i]).abs() <= bf16_ulp(tp[i])
+        boundary[i] = bool((near_k & near_p).all())
+    explained = tie | (diff & boundary[:, None])
+    unexplained = int((diff & ~explained).sum())
+    res = {
+        "case": name, "B": b, "N_pad": n_pad, "d": d, "r": r, "l2": l2,
+        "bmax_max_abs_err": max_abs, "bmax_entries_off_by_1ulp": n_off,
+        "id_mismatches": int(diff.sum()), "explained_by_score_tie":
+        int(tie.sum()), "explained_by_boundary_selection":
+        int((diff & ~tie & boundary[:, None]).sum()),
+        "unexplained_mismatches": unexplained,
+    }
+    check(unexplained == 0, f"{name}: {unexplained} unexplained id "
+          f"mismatches")
+    if timing:
+        res["kernel_ms"] = median_ms(lambda: bms.int8_blockmax_stage1(*args))
+        res["plain_ms"] = median_ms(
+            lambda: bms.int8_blockmax_stage1_reference(*args))
+        a8b = a8.to(torch.bfloat16)
+        res["library_ms"] = median_ms(
+            lambda: torch.matmul(qb, a8b.T).view(b, nblk, bms.BLOCK)
+            .amax(-1))
+        del a8b
+        flops = 2.0 * b * n_pad * d
+        nbytes = (b * d * 2 + n_pad * d + n_pad * 4 * 2 + n_pad
+                  + b * 4 + b * nblk * 4)
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        res["bound_ms"] = max(t_ops, t_bytes)
+        res["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    print("kernel_case " + json.dumps(res), flush=True)
+    return res
+
+
+def phase_kernels(dev):
+    import torch
+
+    out = []
+    for name, q, q8, sc, vs, va, r, l2 in small_cases():
+        t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+             for x in (q.astype(np.float32), q8, sc, vs, va)]
+        out.append(compare_case(name, *t, r, l2))
+    return out
+
+
+def phase_main(dev, n=1_000_000):
+    """The port's main path through Engine; returns its numbers."""
+    import torch
+
+    from vearch_tpu_torch.engine.engine import Engine, SearchRequest
+    from vearch_tpu_torch.engine.types import (
+        DataType, FieldSchema, IndexParams, MetricType, TableSchema,
+    )
+    from vearch_tpu_torch.ops import blockmax_scan as bms
+    from vearch_tpu_torch.ops.distance import similarity_scores
+
+    d, batch = 128, 1024
+    t0 = time.monotonic()
+    base, queries = build_data(n, d)
+    data_s = time.monotonic() - t0
+    params = {"ncentroids": 2048, "nsubvector": 32, "train_iters": 8,
+              "training_threshold": 2 * n, "store_dtype": "bfloat16"}
+    schema = TableSchema("bench", [FieldSchema(
+        "emb", DataType.VECTOR, dimension=d,
+        index=IndexParams("IVFPQ", MetricType.L2, params))])
+    eng = Engine(schema)
+    check(eng.device.type == "cuda", "engine did not default to cuda")
+    t0 = time.monotonic()
+    for i in range(0, n, 100_000):
+        hi = min(i + 100_000, n)
+        eng.upsert([{"_id": f"d{j}", "emb": base[j]} for j in range(i, hi)])
+    ingest_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    eng.build_index()
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    print(f"main: data {data_s:.1f}s ingest {ingest_s:.1f}s "
+          f"build {build_s:.1f}s", flush=True)
+
+    # exact f32 oracle on the card (TF32 off), chunked over queries
+    base_d = torch.from_numpy(base).to(dev)
+    base_sq = (base_d * base_d).sum(1)
+    q_d = torch.from_numpy(queries[:batch]).to(dev)
+    truth = []
+    for lo in range(0, batch, 128):
+        s = similarity_scores(q_d[lo:lo + 128], base_d, MetricType.L2,
+                              base_sq)
+        truth.append(torch.topk(s, 10, dim=1).indices)
+    truth = torch.cat(truth).cpu().numpy()
+    del base_d, base_sq, s
+
+    def request(params):
+        return SearchRequest(vectors={"emb": queries[:batch]}, k=10,
+                             include_fields=[], raw_results=True,
+                             index_params=params)
+
+    def recall_of(res):
+        got = [[int(k[1:]) for k in row] for row in res.keys]
+        hits = sum(len(set(g) & set(t.tolist()))
+                   for g, t in zip(got, truth))
+        return hits / truth.size
+
+    def timed(params, iters=5):
+        req = request(params)
+        eng.search(req)  # warm-up (first call flushes the device mirrors)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(iters):
+            res = eng.search(req)
+        return res, (time.monotonic() - t0) / iters
+
+    out = {"ingest_s": ingest_s, "build_s": build_s}
+    bms.int8_blockmax_stage1.launches = 0
+    # the JAX package's bench request (rerank 128); its recall is
+    # reported, the block-max selection's cost at this depth
+    res, sec = timed(BENCH_PARAMS)
+    out["bench_rerank128"] = {"search_ms": sec * 1e3, "qps": batch / sec,
+                              "recall_at_10": recall_of(res)}
+    # the same depth with exact top-k selection (no block maxima):
+    # separates the selection's recall cost from the quantizer's
+    res, sec = timed(dict(BENCH_PARAMS, topk_mode="exact"), iters=1)
+    out["exact_topk_rerank128"] = {"search_ms": sec * 1e3,
+                                   "recall_at_10": recall_of(res)}
+    # the gated request: rerank deep enough for the bench's 0.95 gate
+    res, sec = timed(GATED_PARAMS)
+    recall = recall_of(res)
+    out["gated"] = {"params": GATED_PARAMS, "search_ms": sec * 1e3,
+                    "qps": batch / sec, "recall_at_10": recall}
+    print("main_search " + json.dumps(out), flush=True)
+    check(recall >= 0.95, f"recall@10 {recall} < 0.95")
+    out["profile"] = profile_search(eng, request(GATED_PARAMS))
+    # delete 1% of the docs, including every query's top hit
+    rng = np.random.default_rng(1)
+    gone = {f"d{j}" for j in rng.choice(n, n // 100, replace=False)}
+    gone |= {row[0] for row in res.keys if row}
+    deleted = eng.delete(sorted(gone))
+    check(deleted == len(gone), "delete count")
+    res2 = eng.search(request(GATED_PARAMS))
+    launches = bms.int8_blockmax_stage1.launches
+    leaked = sum(k in gone for row in res2.keys for k in row)
+    print(f"main: deleted {deleted}, deleted keys returned {leaked}, "
+          f"kernel launches {launches}", flush=True)
+    check(leaked == 0, f"{leaked} deleted keys came back")
+    check(all(len(row) == 10 for row in res2.keys), "short result rows")
+    check(launches > 0, "main path never launched the kernel")
+    out.update(launches=launches, deleted=deleted)
+    index = eng.indexes["emb"]
+    mirror = index._mirror.flush()
+    valid = torch.zeros(mirror[0].shape[0], dtype=torch.bool, device=dev)
+    valid[:n] = eng._device_alive_mask(n)
+    return out, queries, mirror, valid
+
+
+def profile_search(eng, req) -> dict:
+    """Device time by kernel over one search (torch.profiler), and the
+    device's busy share of the search's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        eng.search(req)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "cuda_time_total", 0.0)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and dev_us:
+            rows.append((dev_us / 1e3, ev.key, ev.count))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    res = {"wall_ms": wall_ms, "device_ms": busy,
+           "device_busy_share": busy / wall_ms if wall_ms else 0.0,
+           "top": [{"kernel": k[:80], "ms": ms, "calls": c}
+                   for ms, k, c in rows[:8]]}
+    print("profile " + json.dumps(res), flush=True)
+    return res
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    from vearch_tpu_torch.ops import blockmax_scan as bms
+
+    dev = torch.device("cuda")
+    card = nvidia_smi()
+    print(f"card: {card}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    t0 = time.monotonic()
+    bms.load_library()
+    print(f"build: {time.monotonic() - t0:.2f}s", flush=True)
+    print(bms.BUILD_LOG, flush=True)
+
+    t0 = time.monotonic()
+    phase_kernels(dev)
+    print(f"phase kernels: {time.monotonic() - t0:.1f}s", flush=True)
+    kernel = {"name": "int8_blockmax_scan", "route": "cuda",
+              "source": "vearch_tpu_torch/csrc/blockmax_scan.cu",
+              "replaces": "vearch_tpu/ops/pallas_kernels.py:201"}
+    t0 = time.monotonic()
+    main_res, queries, (a8, sc, vs), valid = phase_main(dev)
+    print("main_path " + json.dumps(main_res), flush=True)
+    print(f"phase main: {time.monotonic() - t0:.1f}s", flush=True)
+    for b in (64, 1024):
+        q = torch.from_numpy(queries[:b]).to(dev)
+        res = compare_case(f"main_B{b}", q, a8, sc, vs, valid, 128, True)
+    kernel.update(
+        launches=main_res["launches"],
+        max_abs_err=res["bmax_max_abs_err"], ms=res["kernel_ms"],
+        plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
+        bound_by=res["bound_by"], library_ms=res["library_ms"])
+    print(card, flush=True)
+    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

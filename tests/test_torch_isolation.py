@@ -1,0 +1,52 @@
+"""vearch_tpu_torch stands alone: importing every one of its modules pulls
+in neither JAX nor anything of vearch_tpu, and its entry points refuse to
+run on the CPU unless asked to."""
+
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import vearch_tpu_torch
+names = sorted(m.name for m in pkgutil.walk_packages(
+    vearch_tpu_torch.__path__, "vearch_tpu_torch."))
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "vearch_tpu" or m.startswith("vearch_tpu."))
+from vearch_tpu_torch.engine.engine import Engine
+from vearch_tpu_torch.engine.types import (DataType, FieldSchema,
+                                           IndexParams, MetricType,
+                                           TableSchema)
+schema = TableSchema("t", [FieldSchema(
+    "emb", DataType.VECTOR, dimension=8,
+    index=IndexParams("IVFPQ", MetricType.L2, {"nsubvector": 2}))])
+try:
+    Engine(schema)
+    refused = False
+except RuntimeError:
+    refused = True
+Engine(schema, device="cpu")
+print(json.dumps({"modules": names, "bad": bad, "refused": refused}))
+"""
+
+
+def test_port_imports_no_jax_and_needs_explicit_cpu():
+    # CUDA_VISIBLE_DEVICES="" hides any card, so the default device is
+    # absent on every machine this runs on
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["bad"] == []
+    for mod in ("vearch_tpu_torch.ops.blockmax_scan",
+                "vearch_tpu_torch.engine.engine",
+                "vearch_tpu_torch.index.ivf", "vearch_tpu_torch.convert"):
+        assert mod in got["modules"]
+    assert got["refused"] is True

@@ -1,0 +1,39 @@
+"""State carried across from vearch_tpu.
+
+`index_state_from_reference` takes what vearch_tpu's
+`IVFPQIndex.dump_state()` returns (numpy arrays: `centroids`,
+`codebooks`, `indexed_count`) and gives the dict the port's
+`IVFPQIndex.load_state` takes. Loading re-absorbs the raw rows through
+the port's own assign/encode/quantize path, so both packages then serve
+the same trained index.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+
+
+def index_state_from_reference(state: dict[str, Any]) -> dict[str, Any]:
+    """Validate and normalise a reference IVFPQ state dict."""
+    if not state:
+        return {}
+    if "opq_R" in state:
+        raise NotImplementedError(
+            "OPQ state is not ported yet (ROADMAP queue 1 item 3)")
+    cents = np.ascontiguousarray(state["centroids"], dtype=np.float32)
+    if cents.ndim != 2:
+        raise ValueError(f"centroids must be [nlist, d], got {cents.shape}")
+    out: dict[str, Any] = {
+        "centroids": cents,
+        "indexed_count": np.int64(state.get("indexed_count", 0)),
+    }
+    if "codebooks" in state:
+        cb = np.ascontiguousarray(state["codebooks"], dtype=np.float32)
+        if cb.ndim != 3 or cb.shape[0] * cb.shape[2] != cents.shape[1]:
+            raise ValueError(
+                f"codebooks {cb.shape} do not split dimension "
+                f"{cents.shape[1]}")
+        out["codebooks"] = cb
+    return out

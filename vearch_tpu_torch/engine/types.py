@@ -1,0 +1,146 @@
+"""Core data model for the per-partition engine.
+
+Copy of vearch_tpu/engine/types.py for the PyTorch port (the port imports
+nothing of vearch_tpu); the reference's table/space schema
+(reference: internal/entity/space.go:75 `Space`, internal/engine/c_api/api_data/table.h:44
+`TableInfo`, internal/ps/engine/mapping/field.go field types).
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass, field
+from typing import Any
+
+
+class DataType(enum.Enum):
+    """Field data types (reference: internal/engine/idl/fbs/types.fbs DataType)."""
+
+    INT = "integer"
+    LONG = "long"
+    FLOAT = "float"
+    DOUBLE = "double"
+    STRING = "string"
+    STRING_ARRAY = "stringArray"
+    DATE = "date"
+    VECTOR = "vector"
+    BOOL = "bool"
+
+
+class MetricType(enum.Enum):
+    """Distance metrics (reference: index params `metric_type` L2/InnerProduct)."""
+
+    L2 = "L2"
+    INNER_PRODUCT = "InnerProduct"
+    COSINE = "Cosine"
+
+
+class IndexStatus(enum.IntEnum):
+    """Index build state machine (reference: search/engine.h:28-33 IndexingState
+    IDLE/STARTING/RUNNING/STOPPING plus engine_status INDEXED)."""
+
+    UNINDEXED = 0
+    TRAINING = 1
+    INDEXING = 2
+    INDEXED = 3
+
+
+class ScalarIndexType(enum.Enum):
+    """Scalar index flavours (reference: table/scalar_index.h:28 + inverted/bitmap/composite)."""
+
+    NONE = "NONE"
+    INVERTED = "INVERTED"
+    BITMAP = "BITMAP"
+
+
+@dataclass
+class IndexParams:
+    """Vector index configuration.
+
+    Mirrors the reference's per-field `index` block in a space schema
+    (reference: sdk/python/vearch/schema/index.py, entity/space.go index params):
+    index_type one of FLAT / IVFFLAT / IVFPQ / HNSW / BINARYIVF / IVFRABITQ,
+    plus params (nlist/nprobe/m/nbits/efConstruction/efSearch/training_threshold).
+    """
+
+    index_type: str = "FLAT"
+    metric_type: MetricType = MetricType.L2
+    params: dict[str, Any] = field(default_factory=dict)
+
+    def get(self, key: str, default: Any = None) -> Any:
+        return self.params.get(key, default)
+
+@dataclass
+class FieldSchema:
+    """One field of a table (reference: entity/space.go `SpaceProperties`,
+    mapping/field.go `FieldMapping`)."""
+
+    name: str
+    data_type: DataType
+    dimension: int = 0  # for VECTOR fields
+    index: IndexParams | None = None  # vector index or scalar index request
+    scalar_index: ScalarIndexType = ScalarIndexType.NONE
+
+    def is_vector(self) -> bool:
+        return self.data_type is DataType.VECTOR
+
+@dataclass
+class TableSchema:
+    """Per-partition table schema (reference: api_data/table.h:44 `TableInfo`).
+
+    `training_threshold`: docs required before background index build starts
+    (reference: engine.cc:966 BuildIndex threshold check).
+    `refresh_interval_ms`: realtime indexing loop cadence
+    (reference: engine.cc:1146 sleep between AddRTVecsToIndex passes).
+    """
+
+    name: str
+    fields: list[FieldSchema]
+    training_threshold: int = 0
+    refresh_interval_ms: int = 1000
+    # multi-column equality indexes (reference: composite_index.h)
+    composite_indexes: list[list[str]] = field(default_factory=list)
+
+    def vector_fields(self) -> list[FieldSchema]:
+        return [f for f in self.fields if f.is_vector()]
+
+    def scalar_fields(self) -> list[FieldSchema]:
+        return [f for f in self.fields if not f.is_vector()]
+
+    def field(self, name: str) -> FieldSchema:
+        for f in self.fields:
+            if f.name == name:
+                return f
+        raise KeyError(f"no field named {name!r}")
+
+@dataclass
+class SearchResultItem:
+    """One hit: doc key, score, optional fields payload, and — when the
+    request carried a `sort` spec — the hit's sort values in spec order
+    (reference: response/doc_results.go SortValues; the router merges on
+    these without re-deriving them from fields)."""
+
+    key: str
+    score: float
+    fields: dict[str, Any] = field(default_factory=dict)
+    sort_values: list | None = None
+
+
+@dataclass
+class SearchResult:
+    """Per-query result list (reference: api_data/response.h:56 `Response`)."""
+
+    items: list[SearchResultItem] = field(default_factory=list)
+
+
+@dataclass
+class ColumnarSearchResults:
+    """Fields-free search results in columnar form: per-query key lists
+    plus ONE flat score buffer (per-query lengths are the key-list
+    lengths). Returned by Engine.search for `raw_results` requests —
+    building b*k SearchResultItem objects measured ~50 ms of host time
+    at b=1024, which a fast device kernel cannot hide; the PS columnar
+    wire path consumes this shape directly."""
+
+    keys: list[list[str]]
+    scores: Any  # np.ndarray [sum(len(keys_i))] f32

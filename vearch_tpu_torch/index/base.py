@@ -1,0 +1,62 @@
+"""Pluggable vector index framework, the port of vearch_tpu/index/base.py.
+
+Contract (as in the reference):
+- `add` is append-only with docid == row id; updates and deletes are the
+  engine's soft-delete bitmap, indexes never mutate rows in place;
+- `search` takes a validity mask (deletions + scalar filter) and applies
+  it inside the scan, so k valid results survive;
+- `train`/`absorb` keep host-side state swaps atomic.
+"""
+
+from __future__ import annotations
+
+import abc
+import threading
+from typing import Any
+
+import numpy as np
+
+from vearch_tpu_torch.engine.raw_vector import RawVectorStore
+from vearch_tpu_torch.engine.types import IndexParams, MetricType
+
+
+class VectorIndex(abc.ABC):
+    """Base class for all vector index types."""
+
+    #: whether train() must run before the index can serve (IVF family)
+    needs_training: bool = False
+
+    def __init__(self, params: IndexParams, store: RawVectorStore):
+        self.params = params
+        self.store = store
+        self.device = store.device
+        self.metric: MetricType = params.metric_type
+        self.trained = not self.needs_training
+        self.indexed_count = 0  # rows absorbed into the index structure
+        self._absorb_lock = threading.Lock()
+
+    @abc.abstractmethod
+    def search(
+        self,
+        queries: np.ndarray,
+        k: int,
+        valid_mask,
+        params: dict | None = None,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Batch search. queries [B, d] f32; valid_mask: host [n] bool,
+        a device bool tensor, or None.
+
+        Returns (scores [B, k] similarity-oriented (higher=better),
+        docids [B, k]; -1 and -inf pad missing results), on the host."""
+
+    def train(self, sample: np.ndarray) -> None:
+        """Train quantizers on a sample (no-op for non-trained indexes)."""
+        self.trained = True
+
+    def absorb(self, upto: int) -> None:
+        """Absorb raw-vector rows [indexed_count, upto) into the index
+        structure. Indexes that search the raw store just advance."""
+        self.indexed_count = upto
+
+    def load_state(self, state: dict[str, Any]) -> None:
+        pass

@@ -1,0 +1,110 @@
+"""Docid-ordered int8 device mirror, the port of
+vearch_tpu/index/int8_mirror.py (int8 storage only).
+
+Append-only host arrays (codes, per-row scale, squared norm) with a
+lazily flushed device copy: a capacity change re-uploads everything,
+otherwise only the rows appended since the last flush are copied, in
+place. Capacity stays a multiple of 512 — the block-max scan reduces
+each 512-row block to its maximum.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+import torch
+
+from vearch_tpu_torch.device import resolve_device
+
+
+def quantize_rows(rows: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-row symmetric int8 quantization; returns (q8, scale, vsq)."""
+    scale = np.maximum(np.abs(rows).max(axis=1) / 127.0, 1e-12).astype(
+        np.float32
+    )
+    q8 = np.clip(np.rint(rows / scale[:, None]), -127, 127).astype(np.int8)
+    deq = q8.astype(np.float32) * scale[:, None]
+    vsq = np.sum(deq * deq, axis=1).astype(np.float32)
+    return q8, scale, vsq
+
+
+class Int8Mirror:
+    def __init__(self, dimension: int, storage: str = "int8", device=None):
+        if str(storage).lower() != "int8":
+            raise NotImplementedError(
+                f"mirror storage {storage!r} is not ported yet (ROADMAP "
+                f"queue 1: int4 and bit-plane mirrors)"
+            )
+        self.dimension = dimension
+        self.device = resolve_device(device)
+        self._h8 = np.zeros((0, dimension), dtype=np.int8)
+        self._h_scale = np.zeros(0, dtype=np.float32)
+        self._h_vsq = np.zeros(0, dtype=np.float32)
+        self._n = 0
+        self._d8: torch.Tensor | None = None
+        self._d_scale: torch.Tensor | None = None
+        self._d_vsq: torch.Tensor | None = None
+        self._d_rows = 0
+        # a concurrent append may replace the host arrays (capacity
+        # growth) while a flush reads them
+        self._flush_lock = threading.Lock()
+
+    @property
+    def count(self) -> int:
+        return self._n
+
+    def append_quantized(
+        self, q8: np.ndarray, scale: np.ndarray, vsq: np.ndarray,
+        start: int | None = None,
+    ) -> None:
+        """Write rows at [start, start+b) (default: append at count)."""
+        with self._flush_lock:
+            start = self._n if start is None else start
+            need = start + q8.shape[0]
+            if self._h8.shape[0] < need:
+                cap = max(need, self._h8.shape[0] * 2, 1024)
+                cap = -(-cap // 512) * 512
+                g8 = np.zeros((cap, self.dimension), dtype=np.int8)
+                gs = np.zeros(cap, dtype=np.float32)
+                gv = np.zeros(cap, dtype=np.float32)
+                g8[: self._n] = self._h8[: self._n]
+                gs[: self._n] = self._h_scale[: self._n]
+                gv[: self._n] = self._h_vsq[: self._n]
+                self._h8, self._h_scale, self._h_vsq = g8, gs, gv
+            sl = slice(start, need)
+            self._h8[sl] = q8
+            self._h_scale[sl] = scale
+            self._h_vsq[sl] = vsq
+            self._n = max(self._n, need)
+            # rows below the mirrored high-water mark were overwritten
+            # (re-absorb after load_state): re-upload from `start`
+            if start < self._d_rows:
+                self._d_rows = start
+
+    def append(self, rows: np.ndarray, start: int | None = None) -> None:
+        self.append_quantized(*quantize_rows(rows), start=start)
+
+    def flush(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Device views [cap, d] int8 / [cap] f32 / [cap] f32; rows >=
+        count are padding."""
+        with self._flush_lock:
+            n = self._n
+            cap = self._h8.shape[0]
+            if self._d8 is None or self._d8.shape[0] != cap:
+                self._d8 = torch.from_numpy(self._h8).to(
+                    self.device, copy=True)
+                self._d_scale = torch.from_numpy(self._h_scale).to(
+                    self.device, copy=True)
+                self._d_vsq = torch.from_numpy(self._h_vsq).to(
+                    self.device, copy=True)
+                self._d_rows = n
+            elif self._d_rows < n:
+                sl = slice(self._d_rows, n)
+                self._d8[sl] = torch.from_numpy(self._h8[sl]).to(self.device)
+                self._d_scale[sl] = torch.from_numpy(
+                    self._h_scale[sl]).to(self.device)
+                self._d_vsq[sl] = torch.from_numpy(
+                    self._h_vsq[sl]).to(self.device)
+                self._d_rows = n
+            return self._d8, self._d_scale, self._d_vsq
