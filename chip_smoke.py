@@ -5,19 +5,32 @@
 
 Phases:
 1. Device and build: the card's name and power limit (nvidia-smi), then
-   the hand-written kernels built from csrc/ with nvcc.
-2. Kernel vs plain version on the card, case by case: block maxima within
-   one bf16 ulp of the plain PyTorch version, candidate ids equal except
-   where explained (f32 score ties, or a block whose selection flipped at
-   the bf16 rounding boundary), with kernel / plain / library times and
-   the card's bound for the same work.
+   every hand-written kernel built from csrc/ with nvcc, one nvcc per
+   source, all started together.
+2. Kernels vs their plain versions on the card, case by case, with
+   kernel / plain / library times and the card's bound for the same work:
+   - block-max scan: block maxima within one bf16 ulp of the plain
+     PyTorch version, candidate ids equal except where explained (f32
+     score ties, or a block whose selection flipped at the bf16 rounding
+     boundary);
+   - probe dots: every dot within 2*d f32 ulps of the sum of the
+     absolute products (the bound on two summation orders of d exact
+     products), zeros for padded probe slots.
 3. Main path (bench.py's headline workload): 1M x 128 rows from seed 0,
    IVFPQ (2048 centroids, 32 subvectors, bf16 store), Engine.upsert in
-   100k batches -> build_index -> search (B=1024, k=10, rerank 128);
-   recall@10 against exact f32 search on the card must be >= 0.95, the
-   kernel must have launched, and after deleting 1% of the docs no
-   deleted key may come back. The main-path kernel shapes (B=64 and
-   B=1024 over the 1M mirror) are then compared as in phase 2.
+   100k batches -> build_index, then on that one engine:
+   - the full-scan regime: search (B=1024, k=10, rerank 128 and 512);
+     recall@10 against exact f32 search on the card must be >= 0.95 at
+     rerank 512 and the block-max kernel must have launched;
+   - the probe regime (scan_mode "probe", nprobe 64, rerank 128 and
+     512): recall@10 >= 0.95 at rerank 512, the probe-dots kernel must
+     have launched, the dispatch tags must be probe_scan then rerank;
+   - after deleting 1% of the docs no deleted key may come back on
+     either path.
+   Each kernel's launch count is set to 0 just before its path runs and
+   read just after. The main-path kernel shapes (B=64 and B=1024, with
+   the index's real mirror, buckets and probes) are then compared as in
+   phase 2.
 
 The last two lines are a JSON object with per-kernel numbers and the
 JSON status line. Any failed check raises, and the script exits non-zero.
@@ -29,6 +42,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -37,6 +51,8 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
 SCORE_TOL = (1e-5, 1e-4)  # (rtol, atol) for "tied" f32 candidate scores
 BENCH_PARAMS = {"rerank": 128}  # bench.py's search request
 GATED_PARAMS = {"rerank": 512}  # the depth the recall gate is held at
+PROBE_PARAMS = {"scan_mode": "probe", "nprobe": 64}  # per_index.py's nprobe
+F32_U = 2.0 ** -24  # unit roundoff of f32
 
 
 def check(cond: bool, msg: str) -> None:
@@ -217,6 +233,108 @@ def phase_kernels(dev):
     return out
 
 
+def bucket_case(nlist, cap, d, b, nprobe, seed):
+    """Random int8 buckets, queries and probe table (int32)."""
+    rng = np.random.default_rng(seed)
+    buckets = rng.integers(-127, 128, (nlist, cap, d)).astype(np.int8)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    probes = rng.integers(0, nlist, (b, nprobe)).astype(np.int32)
+    return q, probes, buckets
+
+
+def probe_cases():
+    """The probe-dots cases of tests/test_torch_probe.py, plus B=70 and
+    d=100 together: (name, queries, probes, buckets)."""
+    out = [("b4", *bucket_case(16, 128, 32, 4, 4, 31)),
+           ("d100", *bucket_case(16, 128, 100, 8, 8, 32)),
+           ("d30_bytes", *bucket_case(16, 128, 30, 8, 8, 33)),
+           ("cap130", *bucket_case(5, 130, 64, 3, 5, 34)),
+           ("b70_d100", *bucket_case(16, 256, 100, 70, 8, 35))]
+    q, probes, buckets = bucket_case(16, 128, 64, 1, 16, 36)
+    probes[0] = np.random.default_rng(37).permutation(16)  # nprobe = nlist
+    out.append(("all_cells_b1", q, probes, buckets))
+    q, probes, buckets = bucket_case(16, 128, 64, 6, 8, 38)
+    probes[:, -3:] = -1  # padded probe slots give zeros
+    probes[0, :] = -1
+    out.append(("pad_slots", q, probes, buckets))
+    return out
+
+
+def probe_tolerance(qb, probes, buckets):
+    """Per-entry bound on |kernel - plain|: both sum the same d exact
+    products (bf16 x int8 is exact in f32) in other orders, and each
+    order is within (d-1) u sum|terms| of the exact sum."""
+    from vearch_tpu_torch.ops.probe_dots import ivf_probe_dots_reference
+
+    d = qb.shape[1]
+    mag = ivf_probe_dots_reference(qb.abs(), probes, buckets.abs())
+    return 2.0 * d * F32_U * mag, mag
+
+
+def compare_probe_case(name, q, probes, buckets, timing=True):
+    """Probe-dots kernel vs its plain version on the card. Returns a
+    result dict; raises on disagreement."""
+    import torch
+
+    from vearch_tpu_torch.ops import probe_dots as pd
+
+    qb = q.to(torch.bfloat16).contiguous()
+    b, d = qb.shape
+    nprobe = probes.shape[1]
+    nlist, cap, _ = buckets.shape
+    got = pd.ivf_probe_dots(qb, probes, buckets)
+    want = pd.ivf_probe_dots_reference(qb, probes, buckets)
+    torch.cuda.synchronize()
+    tol, mag = probe_tolerance(qb, probes, buckets)
+    err = (got - want).abs()
+    check(bool((err <= tol).all()), f"{name}: probe dots beyond 2d ulps")
+    pad = (probes < 0)[:, :, None].expand_as(got)
+    check(bool((got[pad] == 0).all()), f"{name}: padded slot not zero")
+    ulps = err / torch.clamp(mag * F32_U, min=torch.finfo(torch.float32).tiny)
+    res = {"case": name, "B": b, "nprobe": nprobe, "nlist": nlist,
+           "cap": cap, "d": d, "max_abs_err": float(err.max()),
+           "max_err_in_u_sum_abs": float(ulps.max()),
+           "entries_off": int((err > 0).sum())}
+    if timing:
+        res["kernel_ms"] = median_ms(
+            lambda: pd.ivf_probe_dots(qb, probes, buckets))
+        res["plain_ms"] = median_ms(
+            lambda: pd.ivf_probe_dots_reference(qb, probes, buckets))
+        bb = buckets.to(torch.bfloat16)
+        pl = torch.clamp(probes, min=0).long()
+
+        def library():
+            # bf16 gather + one batched product per 32-query chunk
+            for lo in range(0, b, pd.PLAIN_CHUNK):
+                hi = min(lo + pd.PLAIN_CHUNK, b)
+                vecs = bb[pl[lo:hi]].view(hi - lo, nprobe * cap, d)
+                torch.bmm(vecs, qb[lo:hi, :, None])
+
+        res["library_ms"] = median_ms(library)
+        del bb
+        uniq = int(torch.unique(probes[probes >= 0]).numel())
+        flops = 2.0 * b * nprobe * cap * d
+        nbytes = b * d * 2 + b * nprobe * 4 + uniq * cap * d \
+            + b * nprobe * cap * 4
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        res.update(distinct_buckets=uniq, bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+    print("probe_case " + json.dumps(res), flush=True)
+    return res
+
+
+def phase_probe_kernels(dev):
+    import torch
+
+    out = []
+    for name, q, probes, buckets in probe_cases():
+        t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+             for x in (q, probes, buckets)]
+        out.append(compare_probe_case(name, *t))
+    return out
+
+
 def phase_main(dev, n=1_000_000):
     """The port's main path through Engine; returns its numbers."""
     import torch
@@ -225,7 +343,7 @@ def phase_main(dev, n=1_000_000):
     from vearch_tpu_torch.engine.types import (
         DataType, FieldSchema, IndexParams, MetricType, TableSchema,
     )
-    from vearch_tpu_torch.ops import blockmax_scan as bms
+    from vearch_tpu_torch.ops import ivf as ivf_ops
     from vearch_tpu_torch.ops.distance import similarity_scores
 
     d, batch = 128, 1024
@@ -284,7 +402,10 @@ def phase_main(dev, n=1_000_000):
         return res, (time.monotonic() - t0) / iters
 
     out = {"ingest_s": ingest_s, "build_s": build_s}
-    bms.int8_blockmax_stage1.launches = 0
+    index = eng.indexes["emb"]
+
+    # -- full-scan regime ---------------------------------------------------
+    reset_launches()
     # the JAX package's bench request (rerank 128); its recall is
     # reported, the block-max selection's cost at this depth
     res, sec = timed(BENCH_PARAMS)
@@ -300,29 +421,71 @@ def phase_main(dev, n=1_000_000):
     recall = recall_of(res)
     out["gated"] = {"params": GATED_PARAMS, "search_ms": sec * 1e3,
                     "qps": batch / sec, "recall_at_10": recall}
+    out["profile"] = profile_search(eng, request(GATED_PARAMS))
+    out["launches"] = read_launches()
     print("main_search " + json.dumps(out), flush=True)
     check(recall >= 0.95, f"recall@10 {recall} < 0.95")
-    out["profile"] = profile_search(eng, request(GATED_PARAMS))
-    # delete 1% of the docs, including every query's top hit
+    check(out["launches"]["int8_blockmax_scan"] > 0,
+          "full-scan path never launched the block-max kernel")
+    top_hits = {row[0] for row in res.keys if row}
+
+    # -- probe regime, same engine and index --------------------------------
+    # the first probe search publishes the buckets; timed here on its own
+    check(index._dirty, "buckets already published before the probe phase")
+    t0 = time.monotonic()
+    index._publish()
+    torch.cuda.synchronize()
+    pops = index.cell_populations()
+    probe = {"publish_s": time.monotonic() - t0, "cap": index._cap,
+             "mean_bucket_len": float(np.mean(pops)),
+             "longest_bucket": int(max(pops)), "nlist": len(pops)}
+    print("probe_publish " + json.dumps(probe), flush=True)
+    reset_launches()
+    for depth in (BENCH_PARAMS, GATED_PARAMS):
+        params = dict(PROBE_PARAMS, **depth)
+        res, sec = timed(params)
+        probe[f"rerank{depth['rerank']}"] = {
+            "params": params, "search_ms": sec * 1e3, "qps": batch / sec,
+            "recall_at_10": recall_of(res)}
+    ledger: list = []
+    ivf_ops.set_dispatch_ledger(ledger)
+    try:
+        eng.search(request(dict(PROBE_PARAMS, **GATED_PARAMS)))
+    finally:
+        ivf_ops.set_dispatch_ledger(None)
+    probe["tags"] = ledger
+    probe["profile"] = profile_search(
+        eng, request(dict(PROBE_PARAMS, **GATED_PARAMS)))
+    probe["launches"] = read_launches()
+    print("probe_search " + json.dumps(probe), flush=True)
+    recall = probe["rerank512"]["recall_at_10"]
+    check(recall >= 0.95, f"probe recall@10 {recall} < 0.95")
+    check(ledger == ["probe_scan", "rerank"], f"probe tags {ledger}")
+    check(probe["launches"]["ivf_probe_dots"] > 0,
+          "probe path never launched the probe-dots kernel")
+    out["probe"] = probe
+    top_hits |= {row[0] for row in res.keys if row}
+
+    # -- deletes: 1% of the docs, including every query's top hit ------------
     rng = np.random.default_rng(1)
     gone = {f"d{j}" for j in rng.choice(n, n // 100, replace=False)}
-    gone |= {row[0] for row in res.keys if row}
+    gone |= top_hits
     deleted = eng.delete(sorted(gone))
     check(deleted == len(gone), "delete count")
-    res2 = eng.search(request(GATED_PARAMS))
-    launches = bms.int8_blockmax_stage1.launches
-    leaked = sum(k in gone for row in res2.keys for k in row)
-    print(f"main: deleted {deleted}, deleted keys returned {leaked}, "
-          f"kernel launches {launches}", flush=True)
-    check(leaked == 0, f"{leaked} deleted keys came back")
-    check(all(len(row) == 10 for row in res2.keys), "short result rows")
-    check(launches > 0, "main path never launched the kernel")
-    out.update(launches=launches, deleted=deleted)
-    index = eng.indexes["emb"]
+    for name, params in (("full", GATED_PARAMS),
+                         ("probe", dict(PROBE_PARAMS, **GATED_PARAMS))):
+        res2 = eng.search(request(params))
+        leaked = sum(k in gone for row in res2.keys for k in row)
+        print(f"main: deleted {deleted}, deleted keys returned on the "
+              f"{name} path: {leaked}", flush=True)
+        check(leaked == 0, f"{leaked} deleted keys came back ({name})")
+        check(all(len(row) == 10 for row in res2.keys),
+              f"short result rows ({name})")
+    out["deleted"] = deleted
     mirror = index._mirror.flush()
     valid = torch.zeros(mirror[0].shape[0], dtype=torch.bool, device=dev)
     valid[:n] = eng._device_alive_mask(n)
-    return out, queries, mirror, valid
+    return out, queries, mirror, valid, index
 
 
 def profile_search(eng, req) -> dict:
@@ -364,43 +527,87 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_counters() -> dict:
+    """Each kernel's wrapper, whose `launches` counts its launches."""
+    from vearch_tpu_torch.ops import blockmax_scan as bms
+    from vearch_tpu_torch.ops import probe_dots as pd
+
+    return {"int8_blockmax_scan": bms.int8_blockmax_stage1,
+            "ivf_probe_dots": pd.ivf_probe_dots}
+
+
+def reset_launches() -> None:
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def build_all() -> None:
+    """Build every kernel library, one nvcc per source, all at once."""
+    from vearch_tpu_torch.ops import blockmax_scan as bms
+    from vearch_tpu_torch.ops import probe_dots as pd
+
+    libs = (bms.LIBRARY, pd.LIBRARY)
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        for fut in [pool.submit(lib.load) for lib in libs]:
+            fut.result()
+    print(f"build: {time.monotonic() - t0:.2f}s", flush=True)
+    for lib in libs:
+        print(lib.build_log, flush=True)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
-    from vearch_tpu_torch.ops import blockmax_scan as bms
+    from vearch_tpu_torch.ops.ivf import coarse_dots, select_probes
 
     dev = torch.device("cuda")
     card = nvidia_smi()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
-    t0 = time.monotonic()
-    bms.load_library()
-    print(f"build: {time.monotonic() - t0:.2f}s", flush=True)
-    print(bms.BUILD_LOG, flush=True)
+    build_all()
 
     t0 = time.monotonic()
     phase_kernels(dev)
+    phase_probe_kernels(dev)
     print(f"phase kernels: {time.monotonic() - t0:.1f}s", flush=True)
-    kernel = {"name": "int8_blockmax_scan", "route": "cuda",
-              "source": "vearch_tpu_torch/csrc/blockmax_scan.cu",
-              "replaces": "vearch_tpu/ops/pallas_kernels.py:201"}
     t0 = time.monotonic()
-    main_res, queries, (a8, sc, vs), valid = phase_main(dev)
+    main_res, queries, (a8, sc, vs), valid, index = phase_main(dev)
     print("main_path " + json.dumps(main_res), flush=True)
     print(f"phase main: {time.monotonic() - t0:.1f}s", flush=True)
     for b in (64, 1024):
         q = torch.from_numpy(queries[:b]).to(dev)
         res = compare_case(f"main_B{b}", q, a8, sc, vs, valid, 128, True)
-    kernel.update(
-        launches=main_res["launches"],
-        max_abs_err=res["bmax_max_abs_err"], ms=res["kernel_ms"],
-        plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
-        bound_by=res["bound_by"], library_ms=res["library_ms"])
+        probes = select_probes(coarse_dots(q, index.centroids),
+                               index.centroids, PROBE_PARAMS["nprobe"])
+        pres = compare_probe_case(f"main_B{b}", q,
+                                  probes.to(torch.int32).contiguous(),
+                                  index._bucket_resid8)
+    kernels = [
+        {"name": "int8_blockmax_scan", "route": "cuda",
+         "source": "vearch_tpu_torch/csrc/blockmax_scan.cu",
+         "replaces": "vearch_tpu/ops/pallas_kernels.py:201",
+         "launches": main_res["launches"]["int8_blockmax_scan"],
+         "max_abs_err": res["bmax_max_abs_err"], "ms": res["kernel_ms"],
+         "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+         "bound_by": res["bound_by"], "library_ms": res["library_ms"]},
+        {"name": "ivf_probe_dots", "route": "cuda",
+         "source": "vearch_tpu_torch/csrc/probe_dots.cu",
+         "replaces": "vearch_tpu/ops/pallas_kernels.py:54",
+         "launches": main_res["probe"]["launches"]["ivf_probe_dots"],
+         "max_abs_err": pres["max_abs_err"], "ms": pres["kernel_ms"],
+         "plain_ms": pres["plain_ms"], "bound_ms": pres["bound_ms"],
+         "bound_by": pres["bound_by"], "library_ms": pres["library_ms"]},
+    ]
     print(card, flush=True)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

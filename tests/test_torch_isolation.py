@@ -46,6 +46,8 @@ def test_port_imports_no_jax_and_needs_explicit_cpu():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["bad"] == []
     for mod in ("vearch_tpu_torch.ops.blockmax_scan",
+                "vearch_tpu_torch.ops.probe_dots",
+                "vearch_tpu_torch.ops._cuda_build",
                 "vearch_tpu_torch.engine.engine",
                 "vearch_tpu_torch.index.ivf", "vearch_tpu_torch.convert"):
         assert mod in got["modules"]

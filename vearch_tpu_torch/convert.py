@@ -2,10 +2,11 @@
 
 `index_state_from_reference` takes what vearch_tpu's
 `IVFPQIndex.dump_state()` returns (numpy arrays: `centroids`,
-`codebooks`, `indexed_count`) and gives the dict the port's
-`IVFPQIndex.load_state` takes. Loading re-absorbs the raw rows through
-the port's own assign/encode/quantize path, so both packages then serve
-the same trained index.
+`codebooks`, `indexed_count`) or its `IVFFlatIndex.dump_state()`
+(`centroids`, `indexed_count`; no codebooks) and gives the dict the
+port's `load_state` takes. Loading re-absorbs the raw rows through the
+port's own assign/encode/quantize path, so both packages then serve the
+same trained index.
 """
 
 from __future__ import annotations

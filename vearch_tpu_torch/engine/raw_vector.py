@@ -52,6 +52,12 @@ class RawVectorStore:
     def count(self) -> int:
         return self._n
 
+    @property
+    def capacity(self) -> int:
+        """Rows the buffers hold before the next doubling (the length of
+        the device buffer and of the probe scans' validity masks)."""
+        return self._host.shape[0]
+
     def add(self, vectors: np.ndarray) -> int:
         """Append [b, d] rows; returns the first assigned row id (the
         engine keeps row id == docid)."""

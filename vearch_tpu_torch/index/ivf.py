@@ -1,17 +1,24 @@
-"""IVFPQ index, the port of vearch_tpu/index/ivf.py (`_IVFBase`,
-`IVFPQIndex`) in its full-scan regime.
+"""IVFFLAT and IVFPQ indexes, the port of vearch_tpu/index/ivf.py
+(`_IVFBase`, `IVFFlatIndex`, `IVFPQIndex`).
 
-- host side keeps per-cluster docid lists and the [n, m] PQ codes;
-- absorb assigns rows to coarse cells, PQ-encodes their residuals, and
-  appends the decoded approximation (centroid + residual), int8-quantized
-  per row, to the docid-ordered mirror;
-- search scans the mirror (block-max selection through the Hopper kernel
-  on a GPU), then reranks the candidates exactly against the raw store.
+- host side keeps per-cluster docid lists and, for IVFPQ, the [n, m] PQ
+  codes; absorb assigns rows to coarse cells and marks the buckets dirty;
+- the probe regime packs the lists into padded [nlist, cap, ...] device
+  tensors (cap = the longest list rounded up to 128) on the first search
+  after an absorb; deletes never republish, the validity mask is applied
+  per slot;
+- IVFFLAT scans its buckets of raw vectors (exact scores, no rerank);
+- IVFPQ has two regimes (`scan_mode`, "auto" = full while the row count
+  fits `full_scan_limit`): the full scan over the docid-ordered int8
+  mirror (block-max selection through the Hopper kernel on a GPU), and
+  the probe scan over int8 residual buckets (the probe-dots Hopper
+  kernel on a GPU, whatever `probe_kernel` says; on the CPU its plain
+  version with "pallas" and the reference's XLA loop with "xla"). Both
+  rerank their candidates exactly against the raw store.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: the probe regime (bucket-grouped scan, the reference's path past
-`full_scan_limit` and its `ivf_probe_dots` kernel), mesh serving and mesh
-training, OPQ, the HNSW coarse quantizer, int4 mirrors and disk stores.
+item: mesh serving and mesh training, OPQ, the HNSW coarse quantizer,
+int4 mirrors and disk stores.
 """
 
 from __future__ import annotations
@@ -30,10 +37,8 @@ from vearch_tpu_torch.ops import ivf as ivf_ops
 from vearch_tpu_torch.ops import kmeans as km
 from vearch_tpu_torch.ops import pq as pq_ops
 from vearch_tpu_torch.ops.blockmax_scan import int8_blockmax_scan
-from vearch_tpu_torch.ops.distance import to_device_mask
-
-_PROBE_TODO = ("the IVFPQ probe regime is not ported yet (ROADMAP queue 1 "
-               "item 5, kernel ivf_probe_dots in queue 2 item 2)")
+from vearch_tpu_torch.ops.distance import sqnorms, to_device_mask
+from vearch_tpu_torch.ops.probe_dots import ivfpq_probe_search
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -58,6 +63,10 @@ class _IVFBase(VectorIndex):
                 "mesh_train is not ported yet (ROADMAP queue 1 item 10)")
         self.centroids: torch.Tensor | None = None  # [nlist, d] f32
         self._members: list[list[int]] = []  # per-cluster docid lists
+        self._dirty = True
+        # published probe-regime state
+        self._bucket_ids: torch.Tensor | None = None  # [nlist, cap] int32
+        self._cap = 0
 
     # -- training ------------------------------------------------------------
 
@@ -124,11 +133,51 @@ class _IVFBase(VectorIndex):
                 lo, hi = boundaries[c], boundaries[c + 1]
                 self._members[int(c)].extend(docids[lo:hi].tolist())
             self.indexed_count = upto
+            self._dirty = True
 
     def _absorb_rows(
         self, rows: np.ndarray, assign: np.ndarray, start_docid: int
     ) -> None:
         pass
+
+    # -- publish -------------------------------------------------------------
+
+    def _bucket_shape(self) -> int:
+        longest = max((len(mm) for mm in self._members), default=0)
+        return max(128, -(-longest // 128) * 128)
+
+    def _publish_ids(self) -> np.ndarray:
+        cap = self._bucket_shape()
+        ids = np.full((self.nlist, cap), -1, dtype=np.int32)
+        for c, mm in enumerate(self._members):
+            if mm:
+                ids[c, : len(mm)] = mm
+        self._cap = cap
+        self._bucket_ids = torch.from_numpy(ids).to(self.device)
+        return ids
+
+    def _publish(self) -> None:
+        """Rebuild the bucket tensors if an absorb changed the lists since
+        the last publish. Under the absorb lock: an absorb would grow the
+        lists between the capacity sizing and the fill loop."""
+        with self._absorb_lock:
+            if self._dirty or self._bucket_ids is None:
+                self._publish_buckets(self._publish_ids())
+                self._dirty = False
+
+    def _publish_buckets(self, ids: np.ndarray) -> None:
+        """Fill the subclass's bucket tensors for the published ids."""
+        raise NotImplementedError
+
+    def _valid_device(self, valid_mask, n: int) -> torch.Tensor:
+        # padded to the store's capacity, which bounds every docid in the
+        # buckets and changes only when the store doubles
+        return to_device_mask(valid_mask, n, max(self.store.capacity, 1),
+                              self.device)
+
+    def _nprobe(self, params: dict | None) -> int:
+        p = params or {}
+        return min(int(p.get("nprobe", self.default_nprobe)), self.nlist)
 
     # -- search helpers ------------------------------------------------------
 
@@ -152,6 +201,21 @@ class _IVFBase(VectorIndex):
 
     # -- state ---------------------------------------------------------------
 
+    def cell_populations(self) -> list[int] | None:
+        """Live per-cell member counts."""
+        with self._absorb_lock:
+            if not self.trained:
+                return None
+            return [len(mm) for mm in self._members]
+
+    def dump_state(self) -> dict[str, Any]:
+        if not self.trained:
+            return {}
+        return {
+            "centroids": _host(self.centroids),
+            "indexed_count": np.int64(self.indexed_count),
+        }
+
     def load_state(self, state: dict[str, Any]) -> None:
         """Adopt trained quantizers and re-absorb every stored row (the
         raw vectors are the durable source of truth)."""
@@ -169,10 +233,62 @@ class _IVFBase(VectorIndex):
         pass
 
 
+@register_index("IVFFLAT")
+class IVFFlatIndex(_IVFBase):
+    """IVF over the raw vectors: buckets hold the rows in `store_dtype`,
+    so the probe scan's scores are exact and need no rerank."""
+
+    def __init__(self, params: IndexParams, store: RawVectorStore):
+        super().__init__(params, store)
+        self._bucket_vecs: torch.Tensor | None = None    # [nlist, cap, d]
+        self._bucket_sqnorm: torch.Tensor | None = None  # [nlist, cap] f32
+
+    def _publish_buckets(self, ids: np.ndarray) -> None:
+        host = self.store.host_view()
+        vecs = np.zeros((self.nlist, ids.shape[1], self.store.dimension),
+                        dtype=np.float32)
+        for c, mm in enumerate(self._members):
+            if mm:
+                vecs[c, : len(mm)] = self._maybe_normalize(
+                    host[np.asarray(mm, dtype=np.int64)])
+        self._bucket_vecs = torch.from_numpy(vecs).to(
+            self.store.store_dtype).to(self.device)
+        self._bucket_sqnorm = sqnorms(self._bucket_vecs)
+
+    def search(
+        self,
+        queries: np.ndarray,
+        k: int,
+        valid_mask,
+        params: dict | None = None,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        assert self.trained, "IVFFLAT search before training"
+        self._publish()
+        nprobe = self._nprobe(params)
+        r = min(self._rerank_depth(k, params), self._cap * nprobe)
+        q = self._maybe_normalize(np.asarray(queries, np.float32))
+        metric = (
+            MetricType.INNER_PRODUCT
+            if self.metric is MetricType.COSINE
+            else self.metric
+        )
+        valid = self._valid_device(valid_mask, self.store.count)
+        ivf_ops.note_dispatch("ivfflat_scan")
+        scores, ids = ivf_ops.ivfflat_candidates(
+            self._to_device(q).to(self.store.store_dtype), self.centroids,
+            self._bucket_vecs, self._bucket_sqnorm, self._bucket_ids, valid,
+            nprobe, min(max(r, k), 2048), metric,
+        )
+        # the scores are exact: no rerank (cosine rides IP on normalized
+        # vectors, which is the cosine itself)
+        return self._pad_to_k(_host(scores), _host(ids), k)
+
+
 @register_index("IVFPQ")
 class IVFPQIndex(_IVFBase):
     """IVFPQ with residual PQ encoding, a docid-ordered int8 full-scan
-    mirror and exact rerank against the raw store."""
+    mirror, int8 residual buckets for the probe regime, and exact rerank
+    against the raw store."""
 
     def __init__(self, params: IndexParams, store: RawVectorStore):
         super().__init__(params, store)
@@ -192,6 +308,10 @@ class IVFPQIndex(_IVFBase):
                                     params.get("data_parallel", "auto")))
         self.codebooks: torch.Tensor | None = None  # [m, ksub, dsub]
         self._codes: np.ndarray | None = None  # [n_indexed, m] host codes
+        # probe-regime state (bucket-grouped)
+        self._bucket_resid8: torch.Tensor | None = None  # [nlist, cap, d]
+        self._bucket_scale: torch.Tensor | None = None   # [nlist] f32
+        self._bucket_vsq: torch.Tensor | None = None     # [nlist, cap] f32
         self._mirror = Int8Mirror(
             store.dimension, storage=str(params.get("mirror_dtype", "int8")),
             device=self.device,
@@ -266,15 +386,16 @@ class IVFPQIndex(_IVFBase):
         if mode == "auto":
             mode = ("full" if self.indexed_count <= self.full_scan_limit
                     else "probe")
+        qt = self._to_device(q)
         if mode != "full":
-            raise NotImplementedError(_PROBE_TODO)
+            cand_i = self._probe_candidates(qt, k, valid_mask, p, metric)
+            return self._rerank(q, cand_i, k)
         approx8, scale, vsq = self._mirror.flush()
         valid = to_device_mask(valid_mask, self.indexed_count,
                                approx8.shape[0], self.device)
         r = min(self._rerank_depth(k, params), max(self.indexed_count, 1))
         topk_mode = p.get("topk_mode", self.params.get("topk_mode", "auto"))
         fused = p.get("fused_rerank", self.params.get("fused_rerank", True))
-        qt = self._to_device(q)
         if scan_kernel == "pallas":
             # the reference's one-pass block-max entry point; on a GPU
             # both scan_kernel values reach the same Hopper kernel
@@ -297,6 +418,34 @@ class IVFPQIndex(_IVFBase):
             _, cand_i = ivf_ops.int8_scan_candidates(
                 qt, approx8, scale, vsq, valid, max(r, k), metric, topk_mode,
             )
+        return self._rerank(q, cand_i, k)
+
+    def _probe_candidates(self, qt: torch.Tensor, k: int, valid_mask,
+                          p: dict, metric: MetricType) -> torch.Tensor:
+        """Probe regime: [B, r] candidate docids (-1 for masked) from the
+        bucket-grouped int8 residuals, republished after any absorb."""
+        self._publish()
+        nprobe = self._nprobe(p)
+        r = min(self._rerank_depth(k, p), self._cap * nprobe, 2048)
+        valid = self._valid_device(valid_mask, self.store.count)
+        # the reference takes its Pallas kernel on the accelerator and its
+        # XLA loop elsewhere. On a GPU both values launch the kernel, as
+        # both scan_kernel values do; on the CPU "pallas" runs the
+        # kernel's plain version and "xla" (the default) the loop
+        kernel = p.get("probe_kernel", self.params.get(
+            "probe_kernel", "pallas" if self.device.type == "cuda" else "xla"))
+        if kernel not in ("xla", "pallas"):
+            raise ValueError(f"probe_kernel must be xla|pallas, got "
+                             f"{kernel!r}")
+        ivf_ops.note_dispatch("probe_scan")
+        args = (qt, self.centroids, self._bucket_resid8, self._bucket_scale,
+                self._bucket_vsq, self._bucket_ids, valid, nprobe, max(r, k))
+        if kernel == "pallas" or self.device.type == "cuda":
+            return ivfpq_probe_search(*args, metric is MetricType.L2)[1]
+        return ivf_ops.ivfpq_candidates(*args, metric)[1]
+
+    def _rerank(self, q: np.ndarray, cand_i: torch.Tensor, k: int
+                ) -> tuple[np.ndarray, np.ndarray]:
         from vearch_tpu_torch.index._store_paths import rerank_against_store
 
         ivf_ops.note_dispatch("rerank")
@@ -304,6 +453,46 @@ class IVFPQIndex(_IVFBase):
             self.store, q, cand_i, min(k, int(cand_i.shape[1])), self.metric,
         )
         return self._pad_to_k(_host(scores), _host(ids), k)
+
+    def _publish_buckets(self, ids: np.ndarray) -> None:
+        """Decode the PQ codes per cluster into int8 residual buckets with
+        one dequant scale per bucket (host numpy, as the reference does),
+        then move them to the device."""
+        cap = ids.shape[1]
+        cents = _host(self.centroids)
+        codebooks = _host(self.codebooks)
+        resid8 = np.zeros((self.nlist, cap, self.store.dimension),
+                          dtype=np.int8)
+        scales = np.ones(self.nlist, dtype=np.float32)
+        vsq = np.zeros((self.nlist, cap), dtype=np.float32)
+        for c, mm in enumerate(self._members):
+            if not mm:
+                continue
+            rows = np.asarray(mm, dtype=np.int64)
+            decoded = pq_ops.decode_pq_np(self._codes[rows], codebooks)
+            if self.metric is MetricType.COSINE:
+                # the residual against the normalized approximation, so
+                # cent_c + s*r8 reconstructs a unit-norm vector (the
+                # mirror's re-normalization)
+                full = cents[c][None, :] + decoded
+                full /= np.maximum(
+                    np.linalg.norm(full, axis=1, keepdims=True), 1e-12)
+                decoded = full - cents[c][None, :]
+            scale = max(float(np.abs(decoded).max()) / 127.0, 1e-12)
+            q8 = np.clip(np.rint(decoded / scale), -127, 127).astype(np.int8)
+            approx = cents[c][None, :] + scale * q8.astype(np.float32)
+            resid8[c, : len(mm)] = q8
+            scales[c] = scale
+            vsq[c, : len(mm)] = np.sum(approx * approx, axis=1)
+        self._bucket_resid8 = torch.from_numpy(resid8).to(self.device)
+        self._bucket_scale = torch.from_numpy(scales).to(self.device)
+        self._bucket_vsq = torch.from_numpy(vsq).to(self.device)
+
+    def dump_state(self) -> dict[str, Any]:
+        state = super().dump_state()
+        if state and self.codebooks is not None:
+            state["codebooks"] = _host(self.codebooks)
+        return state
 
     def _load_codebooks(self, state: dict[str, Any]) -> None:
         if "opq_R" in state:

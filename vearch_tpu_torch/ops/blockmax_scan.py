@@ -15,23 +15,16 @@ take the top-r, chunked over 32 queries so the gather stays ~150 MB at
 B=1024.
 
 The kernel is built with nvcc at first use into vearch_tpu_torch/_build/
-(a shared library with a plain C interface, loaded with ctypes; the file
-name carries the source's hash, so an edited source rebuilds).
+through ops/_cuda_build.py (`LIBRARY.load()`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
-from pathlib import Path
 
 import torch
 
+from vearch_tpu_torch.ops._cuda_build import CudaLibrary
 from vearch_tpu_torch.ops.distance import NEG_INF, sqnorms, stable_topk
 
 BLOCK = 512  # rows per block maximum (ops/ivf.py BLOCK)
@@ -39,62 +32,10 @@ STAGE2_CHUNK = 32  # queries per stage-2 gather
 MASKED = -3.4e38  # stage-1 score of an invalid row (the reference's value)
 MAX_BLOCKS = 65535  # the kernel's grid y limit: N_pad <= 33.5M rows
 
-_PKG = Path(__file__).resolve().parent.parent
-_SRC = _PKG / "csrc" / "blockmax_scan.cu"
-_BUILD = _PKG / "_build"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_lib = None
-#: nvcc's output of the last build in this process (register and shared
-#: memory use per kernel, from -Xptxas -v); empty when the library was
-#: already built
-BUILD_LOG = ""
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the blockmax_scan kernel is "
-                           "built from source on the machine with the GPU")
-    return found
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; returns the handle."""
-    global _lib, BUILD_LOG
-    if _lib is not None:
-        return _lib
-    src = _SRC.read_bytes()
-    digest = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    so = _BUILD / f"blockmax_scan_{digest[:16]}.so"
-    if not so.exists():
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD)
-        os.close(fd)
-        t0 = time.monotonic()
-        proc = subprocess.run(
-            [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SRC)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed building {_SRC.name}:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
-        BUILD_LOG = (f"built {so.name} in {time.monotonic() - t0:.1f}s\n"
-                     f"{proc.stdout}{proc.stderr}")
-    lib = ctypes.CDLL(str(so))
-    fn = lib.vt_int8_blockmax_stage1
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+LIBRARY = CudaLibrary("blockmax_scan.cu", {
+    "vt_int8_blockmax_stage1":
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+})
 
 
 def int8_blockmax_stage1_reference(
@@ -169,7 +110,7 @@ def int8_blockmax_stage1(
                                               valid, qsq, l2)
     if qb.device.type != "cuda":
         raise ValueError(f"unsupported device {qb.device}")
-    lib = load_library()
+    lib = LIBRARY.load()
     b, d = qb.shape
     nblk = approx8.shape[0] // BLOCK
     out = torch.empty((b, nblk), dtype=torch.float32, device=qb.device)

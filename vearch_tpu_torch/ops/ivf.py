@@ -1,5 +1,18 @@
-"""IVFPQ full-scan search ops, the port of the full-scan half of
-vearch_tpu/ops/ivf.py.
+"""IVF search ops, the port of vearch_tpu/ops/ivf.py.
+
+Probe scans (the bucket layout built by index/ivf.py on publish:
+centroids [nlist, d], bucket_ids [nlist, cap] int32 with -1 padding, and
+per cell either bucket_vecs [nlist, cap, d] or the int8 residuals):
+
+- `_coarse_probes`: top-nprobe cells per query, a full-f32 q.c product
+  (`coarse_dots`) and the L2 coarse score's top-nprobe (`select_probes`),
+  which both arms use; the kernel arm also keeps q.c for its scores.
+- `ivfpq_candidates` / `ivfflat_candidates`: the reference's XLA arm, a
+  loop over probe ranks that scores one bucket per query and folds it
+  into a running top-r (`_fold_topk`). A `probes=` table may carry -1 in
+  padded slots: such a step scans cell 0 fully masked, since scanning a
+  real cell twice would duplicate its docids. The probe kernel's arm is
+  `ops/probe_dots.ivfpq_probe_search`.
 
 The full scan reads the docid-ordered int8 mirror (per-row scaled
 approximations of the PQ-decoded vectors), selects top-r candidates and
@@ -34,8 +47,9 @@ from vearch_tpu_torch.ops.distance import NEG_INF, sqnorms, stable_topk
 
 # Optional dispatch ledger: when a list is installed here, index call
 # sites append one tag per search program they run, with the reference's
-# tag names (fused_scan_rerank, pallas_blockmax_scan, rerank, flat_scan)
-# so the two packages' ledgers compare line by line.
+# tag names (fused_scan_rerank, pallas_blockmax_scan, probe_scan,
+# ivfflat_scan, rerank, flat_scan) so the two packages' ledgers compare
+# line by line.
 _dispatch_ledger: list | None = None
 
 
@@ -47,6 +61,133 @@ def set_dispatch_ledger(ledger: list | None) -> None:
 def note_dispatch(tag: str) -> None:
     if _dispatch_ledger is not None:
         _dispatch_ledger.append(tag)
+
+
+def coarse_dots(queries: torch.Tensor, centroids: torch.Tensor
+                ) -> torch.Tensor:
+    """[B, nlist] q . centroid at full f32 (TF32 is off: the reference's
+    Precision.HIGHEST; a bf16 or TF32 product flips probes near ties)."""
+    return torch.matmul(queries.float(), centroids.float().T)
+
+
+def select_probes(qc: torch.Tensor, centroids: torch.Tensor,
+                  nprobe: int) -> torch.Tensor:
+    """Top-nprobe cells [B, nprobe] (int64, lower cell first on ties) by
+    the L2 coarse score 2 q.c - |c|^2: coarse assignment is L2 geometry
+    for every metric (IP/cosine data is normalized upstream)."""
+    return stable_topk(2.0 * qc - sqnorms(centroids)[None, :], nprobe)[1]
+
+
+def _coarse_probes(queries: torch.Tensor, centroids: torch.Tensor,
+                   nprobe: int) -> torch.Tensor:
+    """Top-nprobe cluster ids per query [B, nprobe] (int64)."""
+    return select_probes(coarse_dots(queries, centroids), centroids, nprobe)
+
+
+def _fold_topk(
+    best: tuple[torch.Tensor, torch.Tensor],
+    scores: torch.Tensor,
+    ids: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fold a new [B, c] candidate block into the running [B, r] top
+    list; on ties the running list, then the lower slot, wins."""
+    best_s, best_i = best
+    top_s, pos = stable_topk(torch.cat([best_s, scores], dim=1),
+                             best_s.shape[1])
+    return top_s, torch.gather(torch.cat([best_i, ids], dim=1), 1, pos)
+
+
+def _probe_loop(queries, probes, r, score_step):
+    """The reference's `lax.scan` over probe ranks: `score_step(c)` gives
+    the [B, cap] scores of cell c[b] for each query; padded slots
+    (c == -1) scan cell 0 fully masked. Returns ([B, r] scores, [B, r]
+    int32 ids, -1 where the score is not finite)."""
+    b = queries.shape[0]
+    best = (torch.full((b, r), NEG_INF, device=queries.device),
+            torch.full((b, r), -1, dtype=torch.int32, device=queries.device))
+    for pr in range(probes.shape[1]):
+        c = probes[:, pr].long()
+        cell_ok = c >= 0
+        scores, ids = score_step(torch.clamp(c, min=0))
+        scores = torch.where(cell_ok[:, None], scores,
+                             torch.full_like(scores, NEG_INF))
+        best = _fold_topk(best, scores, ids)
+    best_s, best_i = best
+    return best_s, torch.where(torch.isfinite(best_s), best_i,
+                               torch.full_like(best_i, -1))
+
+
+def _mask_slots(scores, ids, valid):
+    ok = (ids >= 0) & valid[torch.clamp(ids, min=0).long()]
+    return torch.where(ok, scores, torch.full_like(scores, NEG_INF))
+
+
+def ivfflat_candidates(
+    queries: torch.Tensor,        # [B, d] store dtype
+    centroids: torch.Tensor,      # [nlist, d] f32
+    bucket_vecs: torch.Tensor,    # [nlist, cap, d] store dtype
+    bucket_sqnorm: torch.Tensor,  # [nlist, cap] f32
+    bucket_ids: torch.Tensor,     # [nlist, cap] int32
+    valid: torch.Tensor,          # [n_pad] bool (docid-indexed)
+    nprobe: int,
+    r: int,
+    metric: MetricType = MetricType.L2,
+    probes: torch.Tensor | None = None,  # [B, nprobe] int32 (precomputed)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scan nprobe buckets per query over the raw vectors; top-r
+    (scores, docids)."""
+    if probes is None:
+        probes = _coarse_probes(queries.float(), centroids, nprobe)
+    q_sq = sqnorms(queries)
+    qf = queries.float()
+
+    def step(c):
+        ids = bucket_ids[c]  # [B, cap]
+        dots = torch.bmm(bucket_vecs[c].float(), qf[:, :, None])[..., 0]
+        if metric is MetricType.L2:
+            scores = -(q_sq[:, None] - 2.0 * dots + bucket_sqnorm[c])
+        else:
+            scores = dots
+        return _mask_slots(scores, ids, valid), ids
+
+    return _probe_loop(queries, probes, r, step)
+
+
+def ivfpq_candidates(
+    queries: torch.Tensor,        # [B, d] f32
+    centroids: torch.Tensor,      # [nlist, d] f32
+    bucket_resid8: torch.Tensor,  # [nlist, cap, d] int8 PQ-decoded residuals
+    bucket_scale: torch.Tensor,   # [nlist] f32 per-cluster dequant scale
+    bucket_vsq: torch.Tensor,     # [nlist, cap] f32 ||approx vector||^2
+    bucket_ids: torch.Tensor,     # [nlist, cap] int32
+    valid: torch.Tensor,          # [n_pad] bool
+    nprobe: int,
+    r: int,
+    metric: MetricType = MetricType.L2,
+    probes: torch.Tensor | None = None,  # [B, nprobe] int32 (precomputed)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's XLA probe scan over int8 residual buckets. Per
+    probed cell c with approx v = cent_c + s_c * r8:
+        q.v = q.cent_c + s_c * (q.r8);  L2 = -(|q|^2 - 2 q.v + |v|^2)
+    (q.cent_c as an elementwise f32 sum, as the reference takes it)."""
+    queries = queries.float()
+    if probes is None:
+        probes = _coarse_probes(queries, centroids, nprobe)
+    q_sq = sqnorms(queries)
+    qb = queries.to(torch.bfloat16).float()
+
+    def step(c):
+        ids = bucket_ids[c]
+        dot8 = torch.bmm(bucket_resid8[c].float(), qb[:, :, None])[..., 0]
+        qc = torch.sum(queries * centroids[c], dim=1)
+        dots = qc[:, None] + bucket_scale[c][:, None] * dot8
+        if metric is MetricType.L2:
+            scores = -(q_sq[:, None] - 2.0 * dots + bucket_vsq[c])
+        else:
+            scores = dots
+        return _mask_slots(scores, ids, valid), ids
+
+    return _probe_loop(queries, probes, r, step)
 
 
 def _int8_scores(queries, approx8, scale, vsq, valid, l2: bool):

@@ -1,0 +1,172 @@
+"""IVF probe scan: the port of vearch_tpu/ops/pallas_kernels.py's
+`ivf_probe_dots` and `ivfpq_probe_search_pallas`.
+
+`ivf_probe_dots` gives the raw dot products of each bf16-rounded query
+with every row of each bucket it probes: [B, nprobe, cap] f32. On a CUDA
+tensor it launches the hand-written Hopper kernel in csrc/probe_dots.cu;
+on a CPU tensor it runs the plain PyTorch version
+`ivf_probe_dots_reference`. There is no fallback from one to the other: a
+CUDA tensor launches the kernel or raises.
+
+`ivfpq_probe_search` is the probe-regime IVFPQ search around it: probe
+selection at full f32 precision, the kernel, then the score assembly,
+masking and one top-r over nprobe*cap slots in PyTorch, as they stayed
+XLA in the reference.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from vearch_tpu_torch.ops._cuda_build import CudaLibrary
+from vearch_tpu_torch.ops.distance import NEG_INF, sqnorms, stable_topk
+from vearch_tpu_torch.ops.ivf import coarse_dots, select_probes
+
+PLAIN_CHUNK = 32  # queries per gather in the plain version
+MAX_SMEM_DIM = 12288  # the kernel keeps the query in 48 KB of shared memory
+
+LIBRARY = CudaLibrary("probe_dots.cu", {
+    "vt_ivf_probe_dots":
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+})
+
+
+def ivf_probe_dots_reference(
+    qb: torch.Tensor,       # [B, d] bf16
+    probes: torch.Tensor,   # [B, nprobe] int32
+    buckets: torch.Tensor,  # [nlist, cap, d] int8
+) -> torch.Tensor:
+    """Plain PyTorch probe dots: gather the probed buckets and take the
+    f32 product with the widened bf16 queries, 32 queries at a time (the
+    f32 gather of all of them would be B*nprobe*cap*d*4 bytes). A probe
+    id < 0 gives zeros."""
+    b, d = qb.shape
+    nprobe = probes.shape[1]
+    cap = buckets.shape[1]
+    out = torch.empty((b, nprobe, cap), dtype=torch.float32,
+                      device=qb.device)
+    for lo in range(0, b, PLAIN_CHUNK):
+        hi = min(lo + PLAIN_CHUNK, b)
+        p = probes[lo:hi].long()
+        vecs = buckets[torch.clamp(p, min=0)].float()  # [c, nprobe, cap, d]
+        dots = torch.matmul(vecs, qb[lo:hi].float()[:, None, :, None])
+        out[lo:hi] = torch.where(p[:, :, None] >= 0, dots[..., 0],
+                                 torch.zeros((), device=qb.device))
+    return out
+
+
+def _check_inputs(qb, probes, buckets) -> None:
+    dev = qb.device
+    for name, t, dtype, ndim in (("qb", qb, torch.bfloat16, 2),
+                                 ("probes", probes, torch.int32, 2),
+                                 ("buckets", buckets, torch.int8, 3)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, qb on {dev}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.ndim != ndim:
+            raise ValueError(f"{name} must have {ndim} dimensions")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    b, d = qb.shape
+    if probes.shape[0] != b:
+        raise ValueError(f"probes must be [{b}, nprobe], got "
+                         f"{tuple(probes.shape)}")
+    if buckets.shape[2] != d:
+        raise ValueError(f"buckets must be [nlist, cap, {d}], got "
+                         f"{tuple(buckets.shape)}")
+    if d > MAX_SMEM_DIM:
+        raise ValueError(f"d={d} exceeds the kernel's {MAX_SMEM_DIM}")
+    if b * probes.shape[1] >= 2 ** 31:
+        raise ValueError("B * nprobe exceeds the kernel's grid")
+    # reading the ids back would make the host wait for the card; there
+    # the kernel writes zeros for an id >= nlist, as for a padded slot
+    if dev.type == "cpu" and bool((probes >= buckets.shape[0]).any()):
+        raise ValueError(f"a probe id is >= nlist={buckets.shape[0]}")
+
+
+def ivf_probe_dots(
+    qb: torch.Tensor,       # [B, d] bf16
+    probes: torch.Tensor,   # [B, nprobe] int32, < 0 for a padded slot
+    buckets: torch.Tensor,  # [nlist, cap, d] int8
+) -> torch.Tensor:
+    """Raw dots q_i . buckets[probes[i, j]] for every probed bucket:
+    [B, nprobe, cap] f32. CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    _check_inputs(qb, probes, buckets)
+    if qb.device.type == "cpu":
+        return ivf_probe_dots_reference(qb, probes, buckets)
+    if qb.device.type != "cuda":
+        raise ValueError(f"unsupported device {qb.device}")
+    lib = LIBRARY.load()
+    b, d = qb.shape
+    nprobe = probes.shape[1]
+    nlist, cap = buckets.shape[:2]
+    out = torch.empty((b, nprobe, cap), dtype=torch.float32,
+                      device=qb.device)
+    with torch.cuda.device(qb.device):
+        stream = torch.cuda.current_stream(qb.device).cuda_stream
+        err = lib.vt_ivf_probe_dots(
+            qb.data_ptr(), probes.data_ptr(), buckets.data_ptr(),
+            out.data_ptr(), b, nprobe, nlist, cap, d, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"probe_dots kernel launch failed: "
+                           f"cudaError {err}")
+    ivf_probe_dots.launches += 1
+    return out
+
+
+#: kernel launches since the counter was last set to 0 (CPU calls, which
+#: run the plain version, do not count)
+ivf_probe_dots.launches = 0
+
+
+def ivfpq_probe_search(
+    queries: torch.Tensor,        # [B, d] f32
+    centroids: torch.Tensor,      # [nlist, d] f32
+    bucket_resid8: torch.Tensor,  # [nlist, cap, d] int8
+    bucket_scale: torch.Tensor,   # [nlist] f32
+    bucket_vsq: torch.Tensor,     # [nlist, cap] f32
+    bucket_ids: torch.Tensor,     # [nlist, cap] int32, -1 = padding
+    valid: torch.Tensor,          # [n_pad] bool (docid-indexed)
+    nprobe: int,
+    r: int,
+    l2: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Probe-mode IVFPQ search: top-nprobe coarse cells, the probe-dots
+    kernel over them, then the top-r of the assembled scores.
+
+    Per probed cell c, with approx v = cent_c + s_c * r8:
+        q.v = q.cent_c + s_c * (q.r8);  L2 = -(|q|^2 - 2 q.v + |v|^2)
+
+    Returns ([B, r] scores, [B, r] int32 docids). A masked slot's id is
+    -1, as the reference's XLA arm (`ivfpq_candidates`) returns it; the
+    reference's Pallas arm leaves the masked slot's docid beside its -inf
+    score, which the exact rerank would score again."""
+    queries = queries.float()
+    b = queries.shape[0]
+    cap = bucket_resid8.shape[1]
+    qc = coarse_dots(queries, centroids)  # [B, nlist], reused below
+    probes = select_probes(qc, centroids, nprobe)  # [B, nprobe]
+    dots8 = ivf_probe_dots(queries.to(torch.bfloat16).contiguous(),
+                           probes.to(torch.int32).contiguous(),
+                           bucket_resid8)  # [B, nprobe, cap]
+    qc_p = torch.gather(qc, 1, probes)
+    scale_p = bucket_scale[probes]
+    dots = qc_p[:, :, None] + scale_p[:, :, None] * dots8
+    ids_p = bucket_ids[probes]  # [B, nprobe, cap]
+    if l2:
+        scores = -(sqnorms(queries)[:, None, None] - 2.0 * dots
+                   + bucket_vsq[probes])
+    else:
+        scores = dots
+    ok = (ids_p >= 0) & valid[torch.clamp(ids_p, min=0).long()]
+    scores = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
+    top_s, pos = stable_topk(scores.reshape(b, nprobe * cap),
+                             min(r, nprobe * cap))
+    ids = torch.gather(ids_p.reshape(b, nprobe * cap), 1, pos)
+    return top_s, torch.where(torch.isfinite(top_s), ids,
+                              torch.full_like(ids, -1))
