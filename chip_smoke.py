@@ -6,7 +6,9 @@
 Phases:
 1. Device and build: the card's name and power limit (nvidia-smi), then
    every hand-written kernel built from csrc/ with nvcc, one nvcc per
-   source, all started together.
+   source, all started together; nvcc's -Xptxas -v report (registers,
+   shared memory, spills) and the count of tensor-core instructions
+   (HGMMA, HMMA) in each library's SASS, where cuobjdump is present.
 2. Kernels vs their plain versions on the card, case by case, with
    kernel / plain / library times and the card's bound for the same work:
    - block-max scan: block maxima within one bf16 ulp of the plain
@@ -15,7 +17,12 @@ Phases:
      boundary);
    - probe dots: every dot within 2*d f32 ulps of the sum of the
      absolute products (the bound on two summation orders of d exact
-     products), zeros for padded probe slots.
+     products), zeros for padded probe slots and ids >= nlist, and
+     exact zeros past each bucket's live length, also where the bytes
+     there are not zero (probe_lens_cases);
+   - block-max maxima of the kernel and the plain version against exact
+     float64 ones on a random 1,000,448 x 128 mirror, for queries near
+     mirror rows and at the main path's noise (phase_blockmax_exact).
 3. Main path (bench.py's headline workload): 1M x 128 rows from seed 0,
    IVFPQ (2048 centroids, 32 subvectors, bf16 store), Engine.upsert in
    100k batches -> build_index, then on that one engine:
@@ -30,15 +37,22 @@ Phases:
    Each kernel's launch count is set to 0 just before its path runs and
    read just after. The main-path kernel shapes (B=64 and B=1024, with
    the index's real mirror, buckets and probes) are then compared as in
-   phase 2.
+   phase 2; the probe kernel's time is split into its pair grouping, the
+   kernel alone, its zero-writing path and an output memset.
 
-The last two lines are a JSON object with per-kernel numbers and the
-JSON status line. Any failed check raises, and the script exits non-zero.
+Before the last three lines comes each kernel's time before its redesign,
+quoted from PERF.md and labelled so. The last three lines are the card's
+name and power limit, a JSON object with per-kernel numbers measured in
+this run (and each bound computed from its inputs), and the JSON status
+line. Any failed check raises, and the script exits non-zero.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -53,6 +67,10 @@ BENCH_PARAMS = {"rerank": 128}  # bench.py's search request
 GATED_PARAMS = {"rerank": 512}  # the depth the recall gate is held at
 PROBE_PARAMS = {"scan_mode": "probe", "nprobe": 64}  # per_index.py's nprobe
 F32_U = 2.0 ** -24  # unit roundoff of f32
+# each kernel's B=1024 time before its redesign, quoted from PERF.md
+# section 6 (not measured by this script): the CUDA-core block-max
+# kernel and the one-block-per-pair probe kernel, on an H100 SXM at 700 W
+QUOTED_PREVIOUS_MS = {"int8_blockmax_scan": 10.39, "ivf_probe_dots": 25.36}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -112,6 +130,19 @@ def small_cases():
     rng = np.random.default_rng(13)
     q = base[rng.choice(79 * 512, 3, replace=False)] + 0.01
     out.append(("prune79", q, q8, sc, vs, np.ones(79 * 512, bool), 8, True))
+    # the kernel's narrow query tile (B <= 8) and its byte-load path
+    base, q8, sc, vs = mirror_case(2048, 30, 21)
+    q = base[np.random.default_rng(22).choice(2048, 1, replace=False)] + 0.01
+    out.append(("b1_d30", q, q8, sc, vs, np.ones(2048, bool), 16, True))
+    base, q8, sc, vs = mirror_case(4096, 16, 23)
+    q = np.random.default_rng(24).standard_normal((8, 16)).astype(np.float32)
+    out.append(("b8_d16_ip", q, q8, sc, vs, np.ones(4096, bool), 16, False))
+    # three query tiles whose CTAs each walk several row blocks
+    base, q8, sc, vs = mirror_case(600 * 512, 64, 25)
+    rng = np.random.default_rng(26)
+    q = base[rng.choice(600 * 512, 300, replace=False)] + 0.01
+    va = rng.random(600 * 512) > 0.1
+    out.append(("b300_walk", q, q8, sc, vs, va, 64, True))
     return out
 
 
@@ -260,20 +291,66 @@ def probe_cases():
     return out
 
 
-def probe_tolerance(qb, probes, buckets):
+def probe_lens_cases():
+    """Probe-dots cases with per-bucket live lengths: (name, queries,
+    probes, buckets, lens). Rows past a bucket's length are zero bytes,
+    as the index publishes them, except in "poisoned", whose tails hold
+    random bytes that must never reach the output."""
+    def ragged(nlist, cap, d, b, nprobe, seed, lens, poison=False):
+        q, probes, buckets = bucket_case(nlist, cap, d, b, nprobe, seed)
+        lens = np.asarray(lens, np.int32)
+        if not poison:
+            buckets[np.arange(cap)[None, :] >= lens[:, None]] = 0
+        return q, probes, buckets, lens
+
+    lens8 = [0, 1, 127, 130, 256, 64, 200, 3]
+    out = [("ragged", *ragged(8, 256, 64, 12, 8, 41, lens8)),
+           ("poisoned", *ragged(8, 256, 64, 12, 8, 42, lens8, poison=True)),
+           ("ragged_d30", *ragged(8, 256, 30, 9, 4, 43, lens8)),
+           ("ragged_d100_b1", *ragged(8, 256, 100, 1, 8, 44, lens8))]
+    q, probes, buckets, lens = ragged(8, 256, 64, 70, 2, 45, lens8)
+    probes[:] = 3  # every query probes one bucket, twice
+    out.append(("one_bucket_b70", q, probes, buckets, lens))
+    lens16 = np.random.default_rng(46).integers(0, 129, 16)
+    lens16[:2] = (0, 128)
+    q, probes, buckets, lens = ragged(16, 128, 64, 3, 16, 47, lens16)
+    probes[:] = np.random.default_rng(48).permutation(16)  # nprobe = nlist
+    out.append(("all_cells_ragged", q, probes, buckets, lens))
+    rng = np.random.default_rng(50)
+    lens32 = rng.integers(0, 385, 32)
+    lens32[:3] = (384, 0, 1)
+    q, probes, buckets, lens = ragged(32, 384, 64, 70, 8, 51, lens32)
+    zipf = 1.0 / np.arange(1, 33)  # a skewed probe table: bucket 0 hot
+    probes[:] = rng.choice(32, probes.shape, p=zipf / zipf.sum())
+    out.append(("skewed_b70", q, probes, buckets, lens))
+    q, probes, buckets, lens = ragged(8, 256, 64, 6, 8, 49, lens8,
+                                      poison=True)
+    probes[:, -2] = -1      # padded probe slots
+    probes[1, 0] = 8        # ids >= nlist (the card only: the CPU raises)
+    probes[4, 3] = 2 ** 31 - 1
+    out.append(("bad_ids_poisoned", q, probes, buckets, lens))
+    return out
+
+
+def probe_tolerance(qb, probes, buckets, lens=None):
     """Per-entry bound on |kernel - plain|: both sum the same d exact
     products (bf16 x int8 is exact in f32) in other orders, and each
-    order is within (d-1) u sum|terms| of the exact sum."""
+    order is within (d-1) u sum|terms| of the exact sum (0 past lens)."""
     from vearch_tpu_torch.ops.probe_dots import ivf_probe_dots_reference
 
     d = qb.shape[1]
-    mag = ivf_probe_dots_reference(qb.abs(), probes, buckets.abs())
+    mag = ivf_probe_dots_reference(qb.abs(), probes, buckets.abs(), lens)
     return 2.0 * d * F32_U * mag, mag
 
 
-def compare_probe_case(name, q, probes, buckets, timing=True):
+def compare_probe_case(name, q, probes, buckets, lens=None, timing=True,
+                       breakdown=False):
     """Probe-dots kernel vs its plain version on the card. Returns a
-    result dict; raises on disagreement."""
+    result dict; raises on disagreement. Ids >= nlist go to the plain
+    version as padded slots (-1): the kernel writes zeros for both.
+    `breakdown` also times the kernel alone on pre-grouped pairs, its
+    zero-writing path alone (every length 0, the same output) and a
+    memset of an output of the same size."""
     import torch
 
     from vearch_tpu_torch.ops import probe_dots as pd
@@ -282,46 +359,92 @@ def compare_probe_case(name, q, probes, buckets, timing=True):
     b, d = qb.shape
     nprobe = probes.shape[1]
     nlist, cap, _ = buckets.shape
-    got = pd.ivf_probe_dots(qb, probes, buckets)
-    want = pd.ivf_probe_dots_reference(qb, probes, buckets)
+    plain_probes = torch.where(probes < nlist, probes,
+                               torch.full_like(probes, -1))
+    got = pd.ivf_probe_dots(qb, probes, buckets, lens)
+    want = pd.ivf_probe_dots_reference(qb, plain_probes, buckets, lens)
     torch.cuda.synchronize()
-    tol, mag = probe_tolerance(qb, probes, buckets)
+    tol, mag = probe_tolerance(qb, plain_probes, buckets, lens)
     err = (got - want).abs()
     check(bool((err <= tol).all()), f"{name}: probe dots beyond 2d ulps")
-    pad = (probes < 0)[:, :, None].expand_as(got)
+    pad = (plain_probes < 0)[:, :, None].expand_as(got)
     check(bool((got[pad] == 0).all()), f"{name}: padded slot not zero")
-    ulps = err / torch.clamp(mag * F32_U, min=torch.finfo(torch.float32).tiny)
     res = {"case": name, "B": b, "nprobe": nprobe, "nlist": nlist,
-           "cap": cap, "d": d, "max_abs_err": float(err.max()),
-           "max_err_in_u_sum_abs": float(ulps.max()),
-           "entries_off": int((err > 0).sum())}
+           "cap": cap, "d": d}
+    pc = torch.clamp(plain_probes, min=0).long()
+    if lens is not None:
+        past = torch.arange(cap, device=q.device) >= lens[pc][:, :, None]
+        check(bool((got[past] == 0).all()),
+              f"{name}: a row past its bucket's length is not zero")
+        res["entries_past_lens"] = int(past.sum())
+    ulps = err / torch.clamp(mag * F32_U, min=torch.finfo(torch.float32).tiny)
+    res.update(max_abs_err=float(err.max()),
+               max_err_in_u_sum_abs=float(ulps.max()),
+               entries_off=int((err > 0).sum()))
     if timing:
         res["kernel_ms"] = median_ms(
-            lambda: pd.ivf_probe_dots(qb, probes, buckets))
+            lambda: pd.ivf_probe_dots(qb, probes, buckets, lens))
+        # the wrapper's share of it: the pair sort and segment offsets
+        res["grouping_ms"] = median_ms(lambda: pd.group_pairs(probes, nlist))
+        if breakdown:
+            order, offs = pd.group_pairs(probes, nlist)
+            full = lens if lens is not None else torch.full(
+                (nlist,), cap, dtype=torch.int32, device=q.device)
+            res["kernel_only_ms"] = median_ms(lambda: pd.launch_grouped(
+                qb, order, offs, full, buckets, nprobe))
+            zero = torch.zeros_like(full)
+            res["zero_lengths_ms"] = median_ms(lambda: pd.launch_grouped(
+                qb, order, offs, zero, buckets, nprobe))
+            out = torch.empty_like(got)
+            res["output_memset_ms"] = median_ms(lambda: out.zero_())
+            del out
         res["plain_ms"] = median_ms(
-            lambda: pd.ivf_probe_dots_reference(qb, probes, buckets))
+            lambda: pd.ivf_probe_dots_reference(qb, plain_probes, buckets,
+                                                lens))
         bb = buckets.to(torch.bfloat16)
-        pl = torch.clamp(probes, min=0).long()
 
         def library():
             # bf16 gather + one batched product per 32-query chunk
             for lo in range(0, b, pd.PLAIN_CHUNK):
                 hi = min(lo + pd.PLAIN_CHUNK, b)
-                vecs = bb[pl[lo:hi]].view(hi - lo, nprobe * cap, d)
+                vecs = bb[pc[lo:hi]].view(hi - lo, nprobe * cap, d)
                 torch.bmm(vecs, qb[lo:hi, :, None])
 
         res["library_ms"] = median_ms(library)
         del bb
-        uniq = int(torch.unique(probes[probes >= 0]).numel())
-        flops = 2.0 * b * nprobe * cap * d
-        nbytes = b * d * 2 + b * nprobe * 4 + uniq * cap * d \
-            + b * nprobe * cap * 4
-        t_ops = flops / PEAK_BF16_FLOPS * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        res.update(distinct_buckets=uniq, bound_ms=max(t_ops, t_bytes),
-                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        res.update(probe_bound(qb, plain_probes, buckets, lens))
     print("probe_case " + json.dumps(res), flush=True)
     return res
+
+
+def probe_bound(qb, probes, buckets, lens):
+    """The least time for these inputs: the live rows of the distinct
+    probed buckets read once, the queries, probes and lengths read once,
+    the [B, nprobe, cap] f32 output written once; 2 * d operations per
+    live row of each (query, probe) pair."""
+    import torch
+
+    b, d = qb.shape
+    nprobe = probes.shape[1]
+    nlist, cap, _ = buckets.shape
+    if lens is None:
+        lens = torch.full((nlist,), cap, dtype=torch.int32,
+                          device=qb.device)
+    ok = probes >= 0
+    live = torch.where(ok, lens[torch.clamp(probes, min=0).long()], 0)
+    uniq = torch.unique(probes[ok]).long()
+    live_rows = int(lens[uniq].sum())
+    flops = 2.0 * d * int(live.sum())
+    pairs = int(ok.sum())
+    nbytes = (b * d * 2 + b * nprobe * 4 + nlist * 4 + live_rows * d
+              + b * nprobe * cap * 4)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return {"distinct_buckets": int(uniq.numel()),
+            "live_rows_read": live_rows, "operations": flops,
+            "live_rows_per_pair": flops / (2.0 * d * pairs) if pairs else 0.0,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def phase_probe_kernels(dev):
@@ -332,6 +455,63 @@ def phase_probe_kernels(dev):
         t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
              for x in (q, probes, buckets)]
         out.append(compare_probe_case(name, *t))
+    for name, *arrays in probe_lens_cases():
+        t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+             for x in arrays]
+        out.append(compare_probe_case(name, *t))
+    return out
+
+
+def phase_blockmax_exact(dev, nblk=1954, d=128, b=1024) -> dict:
+    """Block maxima of the kernel and of the plain version against exact
+    ones (float64 scores of the same bf16 queries and int8 rows) on a
+    random nblk*512 x d mirror: for queries that nearly duplicate mirror
+    rows (noise 0.01: L2 scores near 0, where |q|^2 + |v|^2 - 2 q.v
+    cancels) and at the main path's noise (0.1). Distances are in bf16
+    ulps of the plain maximum."""
+    import torch
+
+    from vearch_tpu_torch.ops import blockmax_scan as bms
+    from vearch_tpu_torch.ops.distance import sqnorms
+
+    base, q8, sc, vs = mirror_case(nblk * bms.BLOCK, d, 5)
+    a8, sc_t, vs_t = (torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                      for x in (q8, sc, vs))
+    valid = torch.ones(a8.shape[0], dtype=torch.bool, device=dev)
+    a64 = a8.double()
+    out = {}
+    for name, noise in (("near_duplicate", 0.01), ("main_path_noise", 0.1)):
+        rng = np.random.default_rng(7)
+        qn = base[:b] + noise * rng.standard_normal((b, d)).astype(np.float32)
+        q = torch.from_numpy(qn).to(dev)
+        qb, qsq = q.to(torch.bfloat16).contiguous(), sqnorms(q).contiguous()
+        args = (qb, a8, sc_t, vs_t, valid, qsq, True)
+        bk = bms.int8_blockmax_stage1(*args)
+        bp = bms.int8_blockmax_stage1_reference(*args)
+        check(bool(torch.isfinite(bk).all() and torch.isfinite(bp).all()),
+              f"blockmax_exact {name}: a maximum is not finite")
+        exact = []
+        for lo in range(0, b, 128):
+            dots = qb[lo:lo + 128].double() @ a64.T * sc_t.double()[None]
+            s = -(qsq[lo:lo + 128].double()[:, None] - 2 * dots
+                  + vs_t.double()[None])
+            exact.append(s.view(-1, nblk, bms.BLOCK).amax(-1))
+        exact = torch.cat(exact)
+        ulp = bf16_ulp(bp).double()
+        kp = (bk - bp).abs().double() / ulp
+        out[name] = {
+            "kernel_vs_plain_max_ulps": float(kp.max()),
+            "entries_beyond_1ulp": int((kp > 1).sum()),
+            "entries_off": int((kp > 0).sum()), "entries": kp.numel(),
+            "kernel_vs_exact_max_ulps": float(
+                ((bk.double() - exact).abs() / ulp).max()),
+            "plain_vs_exact_max_ulps": float(
+                ((bp.double() - exact).abs() / ulp).max()),
+            "smallest_abs_max": float(bp.abs().min())}
+    print("blockmax_exact " + json.dumps(out), flush=True)
+    # queries off the rows keep compare_case's one-ulp contract
+    check(out["main_path_noise"]["entries_beyond_1ulp"] == 0,
+          "blockmax_exact: a maximum beyond one bf16 ulp at noise 0.1")
     return out
 
 
@@ -558,6 +738,24 @@ def build_all() -> None:
     print(f"build: {time.monotonic() - t0:.2f}s", flush=True)
     for lib in libs:
         print(lib.build_log, flush=True)
+        print(f"sass {lib.source.name}: " + json.dumps(sass_counts(lib)),
+              flush=True)
+
+
+def sass_counts(lib) -> dict:
+    """Tensor-core instructions in a built library's SASS (cuobjdump):
+    HGMMA is Hopper's warpgroup product, HMMA the warp-level one."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if tool is None:
+        return {"cuobjdump": "not found"}
+    out = subprocess.run([tool, "-sass", lib.path], capture_output=True,
+                         text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    return {op: len(re.findall(rf"\b{op}\b", out.stdout))
+            for op in ("HGMMA", "HMMA", "FFMA")}
 
 
 def main() -> int:
@@ -577,6 +775,7 @@ def main() -> int:
     t0 = time.monotonic()
     phase_kernels(dev)
     phase_probe_kernels(dev)
+    phase_blockmax_exact(dev)
     print(f"phase kernels: {time.monotonic() - t0:.1f}s", flush=True)
     t0 = time.monotonic()
     main_res, queries, (a8, sc, vs), valid, index = phase_main(dev)
@@ -589,9 +788,13 @@ def main() -> int:
                                index.centroids, PROBE_PARAMS["nprobe"])
         pres = compare_probe_case(f"main_B{b}", q,
                                   probes.to(torch.int32).contiguous(),
-                                  index._bucket_resid8)
+                                  index._bucket_resid8, index._bucket_lens,
+                                  breakdown=True)
     kernels = [
         {"name": "int8_blockmax_scan", "route": "cuda",
+         "design": "wgmma bf16 (A: int8 rows converted in registers, B: "
+                   "the query tile in shared memory), persistent CTAs, "
+                   "fused block-max epilogue",
          "source": "vearch_tpu_torch/csrc/blockmax_scan.cu",
          "replaces": "vearch_tpu/ops/pallas_kernels.py:201",
          "launches": main_res["launches"]["int8_blockmax_scan"],
@@ -599,6 +802,10 @@ def main() -> int:
          "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
          "bound_by": res["bound_by"], "library_ms": res["library_ms"]},
         {"name": "ivf_probe_dots", "route": "cuda",
+         "design": "pairs sorted by bucket on the device; a CTA per "
+                   "(bucket, 64-row tile) reads its live rows once per 64 "
+                   "pairs, mma.sync bf16 (int8 rows converted in "
+                   "registers), zero tails as 16-byte stores",
          "source": "vearch_tpu_torch/csrc/probe_dots.cu",
          "replaces": "vearch_tpu/ops/pallas_kernels.py:54",
          "launches": main_res["probe"]["launches"]["ivf_probe_dots"],
@@ -606,6 +813,8 @@ def main() -> int:
          "plain_ms": pres["plain_ms"], "bound_ms": pres["bound_ms"],
          "bound_by": pres["bound_by"], "library_ms": pres["library_ms"]},
     ]
+    print("quoted_previous_ms (PERF.md section 6, not measured in this "
+          "run) " + json.dumps(QUOTED_PREVIOUS_MS), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

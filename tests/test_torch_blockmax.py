@@ -180,3 +180,20 @@ def test_stage1_wrapper_rejects_bad_input():
     with pytest.raises(ValueError):
         bms.int8_blockmax_stage1(qb, _t(q8), _t(scale), _t(vsq),
                                  _t(valid), qsq[:2], True)
+
+
+@pytest.mark.parametrize("b,d,want", [
+    (1, 128, 8), (8, 30, 8), (9, 128, 64), (64, 100, 64), (70, 64, 128),
+    (1024, 128, 128), (1024, 1600, 64), (300, 12800, 8)])
+def test_query_tile_width(b, d, want):
+    """The kernel's query tile: the narrowest wgmma N that holds the
+    batch, narrowed while the bf16 tile (d rounded up to 64) would pass
+    the kernel's shared-memory budget."""
+    n = bms.query_tile(b, d)
+    assert n == want
+    assert n * (-(-d // 64) * 64) * 2 <= bms.MAX_QUERY_SMEM
+
+
+def test_query_tile_refuses_a_d_past_the_budget():
+    with pytest.raises(ValueError):
+        bms.query_tile(1, 12864)

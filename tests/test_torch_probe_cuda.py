@@ -1,9 +1,13 @@
 """The Hopper probe-dots kernel against its plain PyTorch version, on the
-card: the cases of chip_smoke.probe_cases(), checked as chip_smoke.py
-checks them (every dot within 2*d f32 ulps of the sum of the absolute
-products, zeros for padded probe slots and for ids past nlist), plus the
-probe-mode search on both probe_kernel arms, and a CUDA engine whose
-probe_kernel values both launch the kernel.
+card: the cases of chip_smoke.probe_cases() and probe_lens_cases()
+(ragged and poisoned bucket lengths, a skewed probe table, every query
+on one bucket, nprobe = nlist, padded and >= nlist ids, d = 30 and 100,
+B = 1 to 70), checked as chip_smoke.py checks them (every dot within
+2*d f32 ulps of the sum of the absolute products, zeros for padded
+probe slots, for ids past nlist and for rows past a bucket's length),
+plus the probe-mode search on both probe_kernel arms, a CUDA engine
+whose probe_kernel values both launch the kernel, and both kernel
+wrappers launching without a host synchronisation.
 
 The kernel has no CPU mode, so these tests are marked `cuda` and skip
 where no card is visible. This file imports no JAX, so it runs on a GPU
@@ -24,6 +28,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import chip_smoke  # noqa: E402
 
 CASES = {c[0]: c[1:] for c in chip_smoke.probe_cases()}
+LENS_CASES = {c[0]: c[1:] for c in chip_smoke.probe_lens_cases()}
 
 
 def _need_cuda():
@@ -42,6 +47,52 @@ def test_probe_kernel_matches_plain_on_cuda(name):
     before = pd.ivf_probe_dots.launches
     chip_smoke.compare_probe_case(name, q, probes, buckets, timing=False)
     assert pd.ivf_probe_dots.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(LENS_CASES))
+def test_probe_kernel_with_lens_matches_plain_on_cuda(name):
+    _need_cuda()
+    from vearch_tpu_torch.ops import probe_dots as pd
+
+    q, probes, buckets, lens = (
+        torch.from_numpy(np.ascontiguousarray(x)).cuda()
+        for x in LENS_CASES[name])
+    before = pd.ivf_probe_dots.launches
+    res = chip_smoke.compare_probe_case(name, q, probes, buckets, lens,
+                                        timing=False)
+    assert pd.ivf_probe_dots.launches == before + 1
+    assert res["entries_past_lens"] > 0
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_do_not_synchronise_on_cuda():
+    """Neither wrapper waits for the card: no .item(), .tolist() or
+    bool() of a CUDA tensor sizes a launch."""
+    _need_cuda()
+    from vearch_tpu_torch.ops import blockmax_scan as bms
+    from vearch_tpu_torch.ops import probe_dots as pd
+
+    q, probes, buckets, lens = (
+        torch.from_numpy(np.ascontiguousarray(x)).cuda()
+        for x in LENS_CASES["skewed_b70"])
+    qb = q.to(torch.bfloat16).contiguous()
+    bq, a8, sc, vs, va = (
+        torch.from_numpy(np.ascontiguousarray(x)).cuda()
+        for x in chip_smoke.small_cases()[0][1:6])
+    bqb = bq.float().to(torch.bfloat16).contiguous()
+    qsq = (bq.float() ** 2).sum(1).contiguous()
+    pd.ivf_probe_dots(qb, probes, buckets, lens)  # build before the check
+    bms.int8_blockmax_stage1(bqb, a8, sc, vs, va, qsq, True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pd.ivf_probe_dots(qb, probes, buckets, lens)
+        pd.ivf_probe_dots(qb, probes, buckets)
+        bms.int8_blockmax_stage1(bqb, a8, sc, vs, va, qsq, True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

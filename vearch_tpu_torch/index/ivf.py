@@ -312,6 +312,7 @@ class IVFPQIndex(_IVFBase):
         self._bucket_resid8: torch.Tensor | None = None  # [nlist, cap, d]
         self._bucket_scale: torch.Tensor | None = None   # [nlist] f32
         self._bucket_vsq: torch.Tensor | None = None     # [nlist, cap] f32
+        self._bucket_lens: torch.Tensor | None = None    # [nlist] int32
         self._mirror = Int8Mirror(
             store.dimension, storage=str(params.get("mirror_dtype", "int8")),
             device=self.device,
@@ -441,7 +442,8 @@ class IVFPQIndex(_IVFBase):
         args = (qt, self.centroids, self._bucket_resid8, self._bucket_scale,
                 self._bucket_vsq, self._bucket_ids, valid, nprobe, max(r, k))
         if kernel == "pallas" or self.device.type == "cuda":
-            return ivfpq_probe_search(*args, metric is MetricType.L2)[1]
+            return ivfpq_probe_search(*args, metric is MetricType.L2,
+                                      self._bucket_lens)[1]
         return ivf_ops.ivfpq_candidates(*args, metric)[1]
 
     def _rerank(self, q: np.ndarray, cand_i: torch.Tensor, k: int
@@ -487,6 +489,11 @@ class IVFPQIndex(_IVFBase):
         self._bucket_resid8 = torch.from_numpy(resid8).to(self.device)
         self._bucket_scale = torch.from_numpy(scales).to(self.device)
         self._bucket_vsq = torch.from_numpy(vsq).to(self.device)
+        # each cell's members sit at the front of its bucket: the kernel
+        # reads no row past this length
+        self._bucket_lens = torch.tensor(
+            [len(mm) for mm in self._members], dtype=torch.int32,
+            device=self.device)
 
     def dump_state(self) -> dict[str, Any]:
         state = super().dump_state()

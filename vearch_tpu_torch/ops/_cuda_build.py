@@ -52,6 +52,8 @@ class CudaLibrary:
         #: memory per kernel, from -Xptxas -v); empty when the library
         #: was already built
         self.build_log = ""
+        #: the built library's file, once loaded
+        self.path = ""
         self._lib: ctypes.CDLL | None = None
         self._lock = threading.Lock()
 
@@ -83,7 +85,8 @@ class CudaLibrary:
             self.build_log = (f"built {so.name} in "
                               f"{time.monotonic() - t0:.1f}s\n"
                               f"{proc.stdout}{proc.stderr}")
-        lib = ctypes.CDLL(str(so))
+        self.path = str(so)
+        lib = ctypes.CDLL(self.path)
         for name, argtypes in self.functions.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

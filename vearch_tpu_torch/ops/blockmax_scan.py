@@ -30,12 +30,29 @@ from vearch_tpu_torch.ops.distance import NEG_INF, sqnorms, stable_topk
 BLOCK = 512  # rows per block maximum (ops/ivf.py BLOCK)
 STAGE2_CHUNK = 32  # queries per stage-2 gather
 MASKED = -3.4e38  # stage-1 score of an invalid row (the reference's value)
-MAX_BLOCKS = 65535  # the kernel's grid y limit: N_pad <= 33.5M rows
+QUERY_TILES = (128, 64, 8)  # the kernel's wgmma N widths, widest first
+MAX_QUERY_SMEM = 200 * 1024  # bytes of the query tile in shared memory
 
 LIBRARY = CudaLibrary("blockmax_scan.cu", {
     "vt_int8_blockmax_stage1":
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 })
+
+
+def query_tile(b: int, d: int) -> int:
+    """The kernel's query-tile width for a batch of `b` queries of
+    dimension `d`: the narrowest of QUERY_TILES that holds the batch,
+    narrowed further while the tile (d rounded up to 64, bf16) would pass
+    MAX_QUERY_SMEM."""
+    dpad = -(-d // 64) * 64
+    fits = [n for n in QUERY_TILES if n * dpad * 2 <= MAX_QUERY_SMEM]
+    if not fits:
+        raise ValueError(f"d={d} exceeds the kernel's query tile "
+                         f"({MAX_QUERY_SMEM} bytes at 8 queries)")
+    for n in reversed(fits):
+        if n >= b:
+            return n
+    return fits[0]
 
 
 def int8_blockmax_stage1_reference(
@@ -82,9 +99,6 @@ def _check_stage1_inputs(qb, approx8, scale, vsq, valid, qsq) -> None:
                          f"{tuple(approx8.shape)}")
     if n_pad % BLOCK:
         raise ValueError(f"N_pad={n_pad} must be a multiple of {BLOCK}")
-    if n_pad // BLOCK > MAX_BLOCKS:
-        raise ValueError(f"N_pad={n_pad} exceeds the kernel's "
-                         f"{MAX_BLOCKS} blocks")
     for name in ("scale", "vsq", "valid"):
         if tuple(named[name].shape) != (n_pad,):
             raise ValueError(f"{name} must be [{n_pad}]")
@@ -110,8 +124,9 @@ def int8_blockmax_stage1(
                                               valid, qsq, l2)
     if qb.device.type != "cuda":
         raise ValueError(f"unsupported device {qb.device}")
-    lib = LIBRARY.load()
     b, d = qb.shape
+    n_tile = query_tile(b, d)
+    lib = LIBRARY.load()
     nblk = approx8.shape[0] // BLOCK
     out = torch.empty((b, nblk), dtype=torch.float32, device=qb.device)
     with torch.cuda.device(qb.device):
@@ -119,7 +134,7 @@ def int8_blockmax_stage1(
         err = lib.vt_int8_blockmax_stage1(
             qb.data_ptr(), approx8.data_ptr(), scale.data_ptr(),
             vsq.data_ptr(), valid.data_ptr(), qsq.data_ptr(),
-            out.data_ptr(), b, d, nblk, int(bool(l2)), stream,
+            out.data_ptr(), b, d, nblk, int(bool(l2)), n_tile, stream,
         )
     if err != 0:
         raise RuntimeError(f"blockmax_scan kernel launch failed: "

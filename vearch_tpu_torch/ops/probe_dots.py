@@ -2,8 +2,12 @@
 `ivf_probe_dots` and `ivfpq_probe_search_pallas`.
 
 `ivf_probe_dots` gives the raw dot products of each bf16-rounded query
-with every row of each bucket it probes: [B, nprobe, cap] f32. On a CUDA
-tensor it launches the hand-written Hopper kernel in csrc/probe_dots.cu;
+with every row of each bucket it probes: [B, nprobe, cap] f32, 0 at and
+past the bucket's live length where `lens` (the index's published
+`_bucket_lens`) is given. On a CUDA tensor it launches the hand-written
+Hopper kernel in csrc/probe_dots.cu, which groups the (query, probe)
+pairs by bucket (`group_pairs`, on the device) and reads no row past a
+bucket's length;
 on a CPU tensor it runs the plain PyTorch version
 `ivf_probe_dots_reference`. There is no fallback from one to the other: a
 CUDA tensor launches the kernel or raises.
@@ -25,11 +29,11 @@ from vearch_tpu_torch.ops.distance import NEG_INF, sqnorms, stable_topk
 from vearch_tpu_torch.ops.ivf import coarse_dots, select_probes
 
 PLAIN_CHUNK = 32  # queries per gather in the plain version
-MAX_SMEM_DIM = 12288  # the kernel keeps the query in 48 KB of shared memory
+MAX_SEGMENTS = 65535  # the kernel's grid y: nlist + 1 segments
 
 LIBRARY = CudaLibrary("probe_dots.cu", {
     "vt_ivf_probe_dots":
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 })
 
 
@@ -37,31 +41,57 @@ def ivf_probe_dots_reference(
     qb: torch.Tensor,       # [B, d] bf16
     probes: torch.Tensor,   # [B, nprobe] int32
     buckets: torch.Tensor,  # [nlist, cap, d] int8
+    lens: torch.Tensor | None = None,  # [nlist] int32 live rows per bucket
 ) -> torch.Tensor:
     """Plain PyTorch probe dots: gather the probed buckets and take the
     f32 product with the widened bf16 queries, 32 queries at a time (the
     f32 gather of all of them would be B*nprobe*cap*d*4 bytes). A probe
-    id < 0 gives zeros."""
+    id < 0 gives zeros, and so does a row at or past its bucket's
+    `lens` entry (`lens=None`: every row is live)."""
     b, d = qb.shape
     nprobe = probes.shape[1]
     cap = buckets.shape[1]
     out = torch.empty((b, nprobe, cap), dtype=torch.float32,
                       device=qb.device)
+    rows = torch.arange(cap, device=qb.device)
     for lo in range(0, b, PLAIN_CHUNK):
         hi = min(lo + PLAIN_CHUNK, b)
         p = probes[lo:hi].long()
-        vecs = buckets[torch.clamp(p, min=0)].float()  # [c, nprobe, cap, d]
+        pc = torch.clamp(p, min=0)
+        vecs = buckets[pc].float()  # [c, nprobe, cap, d]
         dots = torch.matmul(vecs, qb[lo:hi].float()[:, None, :, None])
-        out[lo:hi] = torch.where(p[:, :, None] >= 0, dots[..., 0],
+        keep = (p >= 0)[:, :, None]
+        if lens is not None:
+            keep = keep & (rows < lens[pc][:, :, None])
+        out[lo:hi] = torch.where(keep, dots[..., 0],
                                  torch.zeros((), device=qb.device))
     return out
 
 
-def _check_inputs(qb, probes, buckets) -> None:
+def group_pairs(probes: torch.Tensor, nlist: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's work list, built on the probes' device without a
+    host read: the B*nprobe pair indices (i*nprobe + j) stably sorted by
+    probe id, and [nlist + 2] segment offsets (bucket c's pairs are
+    order[offs[c]:offs[c+1]]; segment nlist holds the ids < 0 or >=
+    nlist). Both int32."""
+    flat = probes.reshape(-1)
+    key = torch.where((flat >= 0) & (flat < nlist), flat,
+                      torch.full_like(flat, nlist))
+    order = torch.argsort(key, stable=True)
+    offs = torch.searchsorted(
+        key[order], torch.arange(nlist + 2, dtype=key.dtype,
+                                 device=key.device), out_int32=True)
+    return order.to(torch.int32), offs
+
+
+def _check_inputs(qb, probes, buckets, lens) -> None:
     dev = qb.device
-    for name, t, dtype, ndim in (("qb", qb, torch.bfloat16, 2),
-                                 ("probes", probes, torch.int32, 2),
-                                 ("buckets", buckets, torch.int8, 3)):
+    named = [("qb", qb, torch.bfloat16, 2), ("probes", probes, torch.int32, 2),
+             ("buckets", buckets, torch.int8, 3)]
+    if lens is not None:
+        named.append(("lens", lens, torch.int32, 1))
+    for name, t, dtype, ndim in named:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, qb on {dev}")
         if t.dtype != dtype:
@@ -71,46 +101,71 @@ def _check_inputs(qb, probes, buckets) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     b, d = qb.shape
+    nlist = buckets.shape[0]
     if probes.shape[0] != b:
         raise ValueError(f"probes must be [{b}, nprobe], got "
                          f"{tuple(probes.shape)}")
     if buckets.shape[2] != d:
         raise ValueError(f"buckets must be [nlist, cap, {d}], got "
                          f"{tuple(buckets.shape)}")
-    if d > MAX_SMEM_DIM:
-        raise ValueError(f"d={d} exceeds the kernel's {MAX_SMEM_DIM}")
+    if lens is not None and lens.shape[0] != nlist:
+        raise ValueError(f"lens must be [{nlist}], got {tuple(lens.shape)}")
+    if nlist + 1 > MAX_SEGMENTS:
+        raise ValueError(f"nlist={nlist} exceeds the kernel's "
+                         f"{MAX_SEGMENTS - 1}")
     if b * probes.shape[1] >= 2 ** 31:
-        raise ValueError("B * nprobe exceeds the kernel's grid")
+        raise ValueError("B * nprobe exceeds the kernel's int32 pair ids")
     # reading the ids back would make the host wait for the card; there
     # the kernel writes zeros for an id >= nlist, as for a padded slot
-    if dev.type == "cpu" and bool((probes >= buckets.shape[0]).any()):
-        raise ValueError(f"a probe id is >= nlist={buckets.shape[0]}")
+    if dev.type == "cpu" and bool((probes >= nlist).any()):
+        raise ValueError(f"a probe id is >= nlist={nlist}")
 
 
 def ivf_probe_dots(
     qb: torch.Tensor,       # [B, d] bf16
     probes: torch.Tensor,   # [B, nprobe] int32, < 0 for a padded slot
     buckets: torch.Tensor,  # [nlist, cap, d] int8
+    lens: torch.Tensor | None = None,  # [nlist] int32, None = all of cap
 ) -> torch.Tensor:
     """Raw dots q_i . buckets[probes[i, j]] for every probed bucket:
-    [B, nprobe, cap] f32. CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
-    _check_inputs(qb, probes, buckets)
+    [B, nprobe, cap] f32, 0 at and past each bucket's live length. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    _check_inputs(qb, probes, buckets, lens)
     if qb.device.type == "cpu":
-        return ivf_probe_dots_reference(qb, probes, buckets)
+        return ivf_probe_dots_reference(qb, probes, buckets, lens)
     if qb.device.type != "cuda":
         raise ValueError(f"unsupported device {qb.device}")
+    if lens is None:
+        nlist, cap = buckets.shape[:2]
+        lens = torch.full((nlist,), cap, dtype=torch.int32,
+                          device=qb.device)
+    with torch.cuda.device(qb.device):
+        order, offs = group_pairs(probes, buckets.shape[0])
+    return launch_grouped(qb, order, offs, lens, buckets, probes.shape[1])
+
+
+def launch_grouped(
+    qb: torch.Tensor,       # [B, d] bf16, cuda
+    order: torch.Tensor,    # [B * nprobe] int32, from group_pairs
+    offs: torch.Tensor,     # [nlist + 2] int32, from group_pairs
+    lens: torch.Tensor,     # [nlist] int32
+    buckets: torch.Tensor,  # [nlist, cap, d] int8
+    nprobe: int,
+) -> torch.Tensor:
+    """The kernel alone, on a work list `group_pairs` built: what
+    `ivf_probe_dots` launches after grouping the pairs. Inputs are as
+    `ivf_probe_dots` checked them."""
     lib = LIBRARY.load()
     b, d = qb.shape
-    nprobe = probes.shape[1]
     nlist, cap = buckets.shape[:2]
     out = torch.empty((b, nprobe, cap), dtype=torch.float32,
                       device=qb.device)
     with torch.cuda.device(qb.device):
         stream = torch.cuda.current_stream(qb.device).cuda_stream
         err = lib.vt_ivf_probe_dots(
-            qb.data_ptr(), probes.data_ptr(), buckets.data_ptr(),
-            out.data_ptr(), b, nprobe, nlist, cap, d, stream,
+            qb.data_ptr(), order.data_ptr(), offs.data_ptr(),
+            lens.data_ptr(), buckets.data_ptr(), out.data_ptr(), b, nprobe,
+            nlist, cap, d, stream,
         )
     if err != 0:
         raise RuntimeError(f"probe_dots kernel launch failed: "
@@ -135,12 +190,17 @@ def ivfpq_probe_search(
     nprobe: int,
     r: int,
     l2: bool = True,
+    bucket_lens: torch.Tensor | None = None,  # [nlist] int32 live rows
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Probe-mode IVFPQ search: top-nprobe coarse cells, the probe-dots
     kernel over them, then the top-r of the assembled scores.
 
     Per probed cell c, with approx v = cent_c + s_c * r8:
         q.v = q.cent_c + s_c * (q.r8);  L2 = -(|q|^2 - 2 q.v + |v|^2)
+
+    `bucket_lens` (each cell's member count) lets the kernel skip the
+    padding; the padded slots carry id -1 either way, so the answers do
+    not change with it.
 
     Returns ([B, r] scores, [B, r] int32 docids). A masked slot's id is
     -1, as the reference's XLA arm (`ivfpq_candidates`) returns it; the
@@ -153,7 +213,7 @@ def ivfpq_probe_search(
     probes = select_probes(qc, centroids, nprobe)  # [B, nprobe]
     dots8 = ivf_probe_dots(queries.to(torch.bfloat16).contiguous(),
                            probes.to(torch.int32).contiguous(),
-                           bucket_resid8)  # [B, nprobe, cap]
+                           bucket_resid8, bucket_lens)  # [B, nprobe, cap]
     qc_p = torch.gather(qc, 1, probes)
     scale_p = bucket_scale[probes]
     dots = qc_p[:, :, None] + scale_p[:, :, None] * dots8
