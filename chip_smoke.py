@@ -6,9 +6,12 @@
 Phases:
 1. Device and build: the card's name and power limit (nvidia-smi), then
    every hand-written kernel built from csrc/ with nvcc, one nvcc per
-   source, all started together; nvcc's -Xptxas -v report (registers,
-   shared memory, spills) and the count of tensor-core instructions
-   (HGMMA, HMMA) in each library's SASS, where cuobjdump is present.
+   source, and the host HNSW graph with g++, all started together;
+   nvcc's -Xptxas -v report (registers, shared memory, spills) and the
+   count of tensor-core instructions (HGMMA, HMMA) in each library's
+   SASS, where cuobjdump is present. Then the data (1M x 128 rows from
+   seed 0), and the HNSW graph of phase 4 starts building on its own
+   thread.
 2. Kernels vs their plain versions on the card, case by case, with
    kernel / plain / library times and the card's bound for the same work:
    - block-max scan: block maxima within one bf16 ulp of the plain
@@ -39,6 +42,16 @@ Phases:
    the index's real mirror, buckets and probes) are then compared as in
    phase 2; the probe kernel's time is split into its pair grouping, the
    kernel alone, its zero-writing path and an output memset.
+4. The rest of the index family (`phase_family`), each engine freed
+   before the next, each path's launches set to 0 just before it:
+   IVFRABITQ (three-stage at rerank 256 and r0 1024 / r1 256, which must
+   launch no block-max kernel and reach the int8-only chain's recall
+   less 0.01; stage0 "off", which must launch it; a profile split by
+   stage), SCANN on inner product (full scan: block-max; probe: probe
+   dots) and HNSW's scan (block-max) on the main path's rows; IVFPQ with
+   the HNSW coarse quantizer (probe dots), BINARYIVF on random bits (each
+   query finds itself at Hamming 0) and HNSW's graph at the sizes in
+   REDUCED. No deleted key may come back on IVFRABITQ and the HNSW scan.
 
 Before the last three lines comes each kernel's time before its redesign,
 quoted from PERF.md and labelled so. The last three lines are the card's
@@ -67,6 +80,17 @@ BENCH_PARAMS = {"rerank": 128}  # bench.py's search request
 GATED_PARAMS = {"rerank": 512}  # the depth the recall gate is held at
 PROBE_PARAMS = {"scan_mode": "probe", "nprobe": 64}  # per_index.py's nprobe
 F32_U = 2.0 ** -24  # unit roundoff of f32
+GRAPH_ROWS, GRAPH_B = 20_000, 64  # HNSW graph mode (host build), reduced
+HNSWQ_ROWS = 200_000  # IVFPQ + HNSW coarse quantizer (per_index.py's n)
+# phase_family's cuts of scale, each with its reason
+REDUCED = {
+    "hnsw_graph": f"{GRAPH_ROWS} rows, {GRAPH_B} queries: the graph is "
+                  "single-threaded host C++ whose 1M-row build would take "
+                  "most of the run's time limit",
+    "ivfpq_hnsw_quantizer": f"{HNSWQ_ROWS} rows and 1024 centroids "
+                            "(scripts/benchmarks/per_index.py's scale): "
+                            "absorb assigns every row by a host graph walk",
+}
 # each kernel's B=1024 time before its redesign, quoted from PERF.md
 # section 6 (not measured by this script): the CUDA-core block-max
 # kernel and the one-block-per-pair probe kernel, on an H100 SXM at 700 W
@@ -515,7 +539,7 @@ def phase_blockmax_exact(dev, nblk=1954, d=128, b=1024) -> dict:
     return out
 
 
-def phase_main(dev, n=1_000_000):
+def phase_main(dev, base, queries):
     """The port's main path through Engine; returns its numbers."""
     import torch
 
@@ -524,12 +548,8 @@ def phase_main(dev, n=1_000_000):
         DataType, FieldSchema, IndexParams, MetricType, TableSchema,
     )
     from vearch_tpu_torch.ops import ivf as ivf_ops
-    from vearch_tpu_torch.ops.distance import similarity_scores
 
-    d, batch = 128, 1024
-    t0 = time.monotonic()
-    base, queries = build_data(n, d)
-    data_s = time.monotonic() - t0
+    (n, d), batch = base.shape, 1024
     params = {"ncentroids": 2048, "nsubvector": 32, "train_iters": 8,
               "training_threshold": 2 * n, "store_dtype": "bfloat16"}
     schema = TableSchema("bench", [FieldSchema(
@@ -546,31 +566,15 @@ def phase_main(dev, n=1_000_000):
     eng.build_index()
     torch.cuda.synchronize()
     build_s = time.monotonic() - t0
-    print(f"main: data {data_s:.1f}s ingest {ingest_s:.1f}s "
-          f"build {build_s:.1f}s", flush=True)
+    print(f"main: ingest {ingest_s:.1f}s build {build_s:.1f}s", flush=True)
 
     # exact f32 oracle on the card (TF32 off), chunked over queries
-    base_d = torch.from_numpy(base).to(dev)
-    base_sq = (base_d * base_d).sum(1)
-    q_d = torch.from_numpy(queries[:batch]).to(dev)
-    truth = []
-    for lo in range(0, batch, 128):
-        s = similarity_scores(q_d[lo:lo + 128], base_d, MetricType.L2,
-                              base_sq)
-        truth.append(torch.topk(s, 10, dim=1).indices)
-    truth = torch.cat(truth).cpu().numpy()
-    del base_d, base_sq, s
+    truth = exact_topk(dev, queries[:batch], base, MetricType.L2)
 
     def request(params):
         return SearchRequest(vectors={"emb": queries[:batch]}, k=10,
                              include_fields=[], raw_results=True,
                              index_params=params)
-
-    def recall_of(res):
-        got = [[int(k[1:]) for k in row] for row in res.keys]
-        hits = sum(len(set(g) & set(t.tolist()))
-                   for g, t in zip(got, truth))
-        return hits / truth.size
 
     def timed(params, iters=5):
         req = request(params)
@@ -590,15 +594,15 @@ def phase_main(dev, n=1_000_000):
     # reported, the block-max selection's cost at this depth
     res, sec = timed(BENCH_PARAMS)
     out["bench_rerank128"] = {"search_ms": sec * 1e3, "qps": batch / sec,
-                              "recall_at_10": recall_of(res)}
+                              "recall_at_10": recall_at_10(res, truth)}
     # the same depth with exact top-k selection (no block maxima):
     # separates the selection's recall cost from the quantizer's
     res, sec = timed(dict(BENCH_PARAMS, topk_mode="exact"), iters=1)
     out["exact_topk_rerank128"] = {"search_ms": sec * 1e3,
-                                   "recall_at_10": recall_of(res)}
+                                   "recall_at_10": recall_at_10(res, truth)}
     # the gated request: rerank deep enough for the bench's 0.95 gate
     res, sec = timed(GATED_PARAMS)
-    recall = recall_of(res)
+    recall = recall_at_10(res, truth)
     out["gated"] = {"params": GATED_PARAMS, "search_ms": sec * 1e3,
                     "qps": batch / sec, "recall_at_10": recall}
     out["profile"] = profile_search(eng, request(GATED_PARAMS))
@@ -626,7 +630,7 @@ def phase_main(dev, n=1_000_000):
         res, sec = timed(params)
         probe[f"rerank{depth['rerank']}"] = {
             "params": params, "search_ms": sec * 1e3, "qps": batch / sec,
-            "recall_at_10": recall_of(res)}
+            "recall_at_10": recall_at_10(res, truth)}
     ledger: list = []
     ivf_ops.set_dispatch_ledger(ledger)
     try:
@@ -665,12 +669,370 @@ def phase_main(dev, n=1_000_000):
     mirror = index._mirror.flush()
     valid = torch.zeros(mirror[0].shape[0], dtype=torch.bool, device=dev)
     valid[:n] = eng._device_alive_mask(n)
-    return out, queries, mirror, valid, index
+    return out, truth, mirror, valid, index
 
 
-def profile_search(eng, req) -> dict:
-    """Device time by kernel over one search (torch.profiler), and the
-    device's busy share of the search's wall time."""
+def exact_topk(dev, queries, base, metric, k=10):
+    """Exact top-k row ids [B, k] on the card (f32, TF32 off), 128
+    queries at a time."""
+    import torch
+
+    from vearch_tpu_torch.ops.distance import similarity_scores
+
+    base_d = torch.from_numpy(np.ascontiguousarray(base)).to(dev)
+    base_sq = (base_d.float() ** 2).sum(1)
+    q_d = torch.from_numpy(np.ascontiguousarray(queries)).to(dev)
+    out = [torch.topk(similarity_scores(q_d[lo:lo + 128], base_d, metric,
+                                        base_sq), k, dim=1).indices
+           for lo in range(0, q_d.shape[0], 128)]
+    return torch.cat(out).cpu().numpy()
+
+
+def recall_at_10(res, truth) -> float:
+    """Share of the exact top 10 among the returned keys ("d<row>")."""
+    got = [[int(k[1:]) for k in row] for row in res.keys]
+    return sum(len(set(g) & set(t.tolist()))
+               for g, t in zip(got, truth)) / truth.size
+
+
+def family_engine(index_type, metric, params, d=128):
+    from vearch_tpu_torch.engine.engine import Engine
+    from vearch_tpu_torch.engine.types import (
+        DataType, FieldSchema, IndexParams, MetricType, TableSchema,
+    )
+
+    schema = TableSchema("family", [FieldSchema(
+        "emb", DataType.VECTOR, dimension=d,
+        index=IndexParams(index_type, MetricType(metric), params))])
+    return Engine(schema)
+
+
+def ingest_and_build(eng, rows, step=100_000) -> dict:
+    """Engine.upsert in `step`-row batches, then build_index; seconds."""
+    import torch
+
+    t0 = time.monotonic()
+    for i in range(0, len(rows), step):
+        eng.upsert([{"_id": f"d{j}", "emb": rows[j]}
+                    for j in range(i, min(i + step, len(rows)))])
+    ingest_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    eng.build_index()
+    torch.cuda.synchronize()
+    return {"rows": len(rows), "ingest_s": ingest_s,
+            "build_s": time.monotonic() - t0}
+
+
+def family_request(queries, params):
+    from vearch_tpu_torch.engine.engine import SearchRequest
+
+    return SearchRequest(vectors={"emb": queries}, k=10, include_fields=[],
+                         raw_results=True, index_params=params)
+
+
+def run_path(eng, queries, params, truth, iters=3, recall=recall_at_10):
+    """One search path: its kernel launches (counts set to 0 just before,
+    read just after), its dispatch tags, recall@10 and wall ms per
+    search (mean of `iters` after a warm-up)."""
+    import torch
+
+    from vearch_tpu_torch.ops import ivf as ivf_ops
+
+    req = family_request(queries, params)
+    reset_launches()
+    ledger: list = []
+    ivf_ops.set_dispatch_ledger(ledger)
+    try:
+        res = eng.search(req)
+    finally:
+        ivf_ops.set_dispatch_ledger(None)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(iters):
+        eng.search(req)
+    torch.cuda.synchronize()
+    sec = (time.monotonic() - t0) / iters
+    out = {"params": params, "B": len(queries), "search_ms": sec * 1e3,
+           "qps": len(queries) / sec, "recall_at_10": recall(res, truth),
+           "tags": ledger, "launches": read_launches()}
+    print("family_path " + json.dumps(out), flush=True)
+    return out, res
+
+
+def check_deletes(eng, queries, res, paths, n, seed=2) -> int:
+    """Delete 1% of the docs and every query's top hit; no deleted key
+    may come back on any of `paths` (request params)."""
+    rng = np.random.default_rng(seed)
+    gone = {f"d{j}" for j in rng.choice(n, n // 100, replace=False)}
+    gone |= {row[0] for row in res.keys if row}
+    check(eng.delete(sorted(gone)) == len(gone), "family delete count")
+    for params in paths:
+        res2 = eng.search(family_request(queries, params))
+        leaked = sum(k in gone for row in res2.keys for k in row)
+        check(leaked == 0, f"{leaked} deleted keys came back ({params})")
+        check(all(len(row) == 10 for row in res2.keys),
+              f"short result rows ({params})")
+    return len(gone)
+
+
+def release_device_memory() -> None:
+    """Collect what the last engine left and hand the cached blocks back
+    to the card, so the next engine starts from an empty card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def family_rabitq(dev, base, queries, truth) -> dict:
+    """IVFRABITQ, L2, full width: the three-stage chain at rerank 256
+    (r0 the auto depth) and r0 1024 / r1 256, and stage0 "off" at rerank
+    256."""
+    from vearch_tpu_torch.ops import binary_scan as bs
+
+    n, d = base.shape
+    eng = family_engine("IVFRABITQ", "L2", {
+        "ncentroids": 2048, "nprobe": 64, "train_iters": 8,
+        "training_threshold": 2 * n, "store_dtype": "bfloat16"})
+    out = ingest_and_build(eng, base)
+    index = eng.indexes["emb"]
+    rows0 = bs.refine_stage_rows()
+    auto, res = run_path(eng, queries, {"rerank": 256}, truth)
+    rows1 = bs.refine_stage_rows()
+    deep, _ = run_path(eng, queries, {"r0": 1024, "r1": 256}, truth)
+    off, _ = run_path(eng, queries, {"stage0": "off", "rerank": 256}, truth)
+    out.update(three_stage_auto=auto, three_stage_r0_1024=deep,
+               stage0_off=off, stage_rows_per_search={
+                   s: (rows1[s] - rows0[s]) // 4 for s in rows0})
+    for path in (auto, deep):
+        check(path["tags"] == ["binary_refine_rerank"],
+              f"three-stage tags {path['tags']}")
+        check(path["launches"]["int8_blockmax_scan"] == 0,
+              "the three-stage chain launched the block-max kernel")
+    check(off["launches"]["int8_blockmax_scan"] > 0,
+          "stage0 off never launched the block-max kernel")
+    # the reference's acceptance gate (tests/test_index_family.py:115)
+    check(deep["recall_at_10"] >= off["recall_at_10"] - 0.01,
+          f"three-stage recall {deep['recall_at_10']} < int8-only "
+          f"{off['recall_at_10']} - 0.01 at r0 1024 / r1 256")
+    planes = index._bits.flush()[0]
+    out["bytes"] = {"bit_plane_payload": n * planes.shape[1],
+                    "int8_mirror_payload": n * d,
+                    "bit_planes_device": index._bits.device_bytes(),
+                    "int8_mirror_device": index._mirror.device_bytes()}
+    # the depths a rerank-256 search runs at (the engine asks for k=16):
+    # r0 is the auto depth of k, not of the requested rerank
+    out["depths_rerank256"] = index._stage_depths(16, {"rerank": 256})
+    prof = profile_search(eng, family_request(queries, {"rerank": 256}),
+                          bs.STAGE_RANGES)
+    stages = prof["ranges_ms"]
+    stage0 = sum(stages[k] for k in bs.STAGE_RANGES[:4])
+    prof["stage0_share"] = stage0 / max(sum(stages.values()), 1e-9)
+    # the least time of stage 0's work: 2 B N d operations at the bf16
+    # peak, against the planes read once (N d/8 bytes)
+    prof["stage0_bound_ms"] = max(
+        2.0 * len(queries) * planes.shape[0] * planes.shape[1] * 8
+        / PEAK_BF16_FLOPS, planes.numel() / PEAK_BYTES) * 1e3
+    out["profile"] = prof
+    out["deleted"] = check_deletes(
+        eng, queries, res, [{"rerank": 256},
+                            {"stage0": "off", "rerank": 256}], n)
+    return out
+
+
+def family_scann(dev, base, queries) -> dict:
+    """SCANN, inner product on the same rows: full scan and probe regime
+    (nprobe 64) at rerank 128 and 512, build with the anisotropic
+    training and encoding timed apart."""
+    import torch
+
+    from vearch_tpu_torch.engine.types import MetricType
+
+    n, _ = base.shape
+    truth = exact_topk(dev, queries, base, MetricType.INNER_PRODUCT)
+    eng = family_engine("SCANN", "InnerProduct", {
+        "ncentroids": 2048, "nsubvector": 32, "nprobe": 64,
+        "train_iters": 8, "training_threshold": 2 * n,
+        "store_dtype": "bfloat16"})
+    index = eng.indexes["emb"]
+    spent = {"_fit_codebooks": 0.0, "_encode_rows": 0.0}
+    for name in spent:
+        fn = getattr(index, name)
+
+        def timed_hook(*a, _fn=fn, _name=name):
+            t0 = time.monotonic()
+            r = _fn(*a)
+            torch.cuda.synchronize()
+            spent[_name] += time.monotonic() - t0
+            return r
+
+        setattr(index, name, timed_hook)
+    out = ingest_and_build(eng, base)
+    out["anisotropic_train_s"] = spent["_fit_codebooks"]
+    out["anisotropic_encode_s"] = spent["_encode_rows"]
+    out["eta"] = index.eta
+    for depth in (128, 512):
+        out[f"full_rerank{depth}"], _ = run_path(
+            eng, queries, {"rerank": depth}, truth)
+        check(out[f"full_rerank{depth}"]["launches"]["int8_blockmax_scan"]
+              > 0, "SCANN full scan never launched the block-max kernel")
+    t0 = time.monotonic()
+    index._publish()
+    torch.cuda.synchronize()
+    out["publish_s"] = time.monotonic() - t0
+    for depth in (128, 512):
+        p = {"scan_mode": "probe", "nprobe": 64, "rerank": depth}
+        out[f"probe_rerank{depth}"], _ = run_path(eng, queries, p, truth)
+        check(out[f"probe_rerank{depth}"]["launches"]["ivf_probe_dots"] > 0,
+              "SCANN probe regime never launched the probe-dots kernel")
+    return out
+
+
+def family_hnsw_scan(dev, base, queries, truth) -> dict:
+    """HNSW in scan mode (the port's "auto"), full width."""
+    n, _ = base.shape
+    eng = family_engine("HNSW", "L2", {"nlinks": 32, "efSearch": 64,
+                                       "efConstruction": 160,
+                                       "store_dtype": "bfloat16"})
+    check(eng.indexes["emb"]._graph is None, "HNSW auto did not scan")
+    out = ingest_and_build(eng, base)
+    out["scan"], res = run_path(eng, queries, {}, truth)
+    check(out["scan"]["launches"]["int8_blockmax_scan"] > 0,
+          "HNSW scan mode never launched the block-max kernel")
+    out["deleted"] = check_deletes(eng, queries, res, [{}], n, seed=3)
+    return out
+
+
+def build_graph_engine(rows) -> tuple:
+    """HNSW in graph mode over `rows` (nlinks 32, efConstruction 160):
+    the host graph, built on its own thread while the card works."""
+    eng = family_engine("HNSW", "L2", {"graph": True, "nlinks": 32,
+                                       "efSearch": 64, "efConstruction": 160})
+    return eng, ingest_and_build(eng, rows, step=25_000)
+
+
+def family_hnsw_graph(dev, rows, queries, built) -> dict:
+    """HNSW graph mode, reduced (GRAPH_ROWS rows, GRAPH_B queries): the
+    graph walks on the host, so the card only holds the result."""
+    from vearch_tpu_torch.engine.types import MetricType
+
+    t0 = time.monotonic()
+    eng, out = built.result()
+    out["waited_s"] = time.monotonic() - t0
+    truth = exact_topk(dev, queries, rows, MetricType.L2)
+    out["graph"], _ = run_path(eng, queries, {}, truth)
+    out["graph"]["per_query_us"] = out["graph"]["search_ms"] * 1e3 / len(
+        queries)
+    return out
+
+
+def family_hnsw_quantizer(dev, rows, queries) -> dict:
+    """IVFPQ with quantizer_type hnsw, probe regime at nprobe 64,
+    reduced to HNSWQ_ROWS rows and 1024 centroids (per_index.py's
+    scale): the coarse graph is built at train time on the host."""
+    import torch
+
+    from vearch_tpu_torch.engine.types import MetricType
+
+    truth = exact_topk(dev, queries, rows, MetricType.L2)
+    eng = family_engine("IVFPQ", "L2", {
+        "ncentroids": 1024, "nsubvector": 32, "nprobe": 64,
+        "quantizer_type": "hnsw", "scan_mode": "probe", "train_iters": 8,
+        "training_threshold": 2 * len(rows), "store_dtype": "bfloat16"})
+    out = ingest_and_build(eng, rows)
+    index = eng.indexes["emb"]
+    check(index._coarse_graph is not None, "no coarse graph")
+    t0 = time.monotonic()
+    probes = index._host_probes(queries, 64)
+    torch.cuda.synchronize()
+    out["host_probe_ms"] = (time.monotonic() - t0) * 1e3
+    out["short_probe_slots"] = int((probes < 0).sum())
+    for depth in (128, 512):
+        out[f"probe_rerank{depth}"], _ = run_path(
+            eng, queries, {"rerank": depth}, truth)
+        check(out[f"probe_rerank{depth}"]["launches"]["ivf_probe_dots"] > 0,
+              "HNSW host probes never launched the probe-dots kernel")
+    return out
+
+
+def family_binaryivf(dev, n=1_000_000, bits=256, b=1024, seed=0) -> dict:
+    """BINARYIVF: n random bit vectors (as tests/test_index_family.py's
+    test_binaryivf_hamming), 1024 centroids, nprobe 64; every query is a
+    stored row and must find itself at Hamming 0. Recall counts a hit
+    when its Hamming distance is at most the exact 10th distance (the
+    distances are integers, so ties are common)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    unpacked = rng.integers(0, 2, (n, bits), dtype=np.uint8)
+    packed = np.packbits(unpacked, axis=1)
+    qi = rng.choice(n, b, replace=False)
+    eng = family_engine("BINARYIVF", "L2", {
+        "ncentroids": 1024, "nprobe": 64, "train_iters": 8,
+        "training_threshold": 2 * n, "store_dtype": "bfloat16"}, d=bits)
+    out = ingest_and_build(eng, packed)
+    # exact Hamming distances on the card: |q| + |x| - 2 q.x, exact
+    # small integers in f32
+    base_f = torch.from_numpy(unpacked).to(dev).float()
+    pop = base_f.sum(1)
+    q_f = base_f[torch.from_numpy(qi).to(dev)]
+    dist = torch.cat([q_f[lo:lo + 128].sum(1)[:, None] + pop[None, :]
+                      - 2.0 * (q_f[lo:lo + 128] @ base_f.T)
+                      for lo in range(0, b, 128)])
+    kth = torch.topk(dist, 10, dim=1, largest=False).values[:, -1]
+    del base_f, pop, q_f
+
+    def hamming_recall(res, _truth):
+        hits = 0
+        for row, keys in enumerate(res.keys):
+            ids = torch.tensor([int(k[1:]) for k in keys], device=dev)
+            hits += int((dist[row, ids] <= kth[row]).sum())
+        return hits / (10 * b)
+
+    queries = packed[qi]
+    out["search"], res = run_path(eng, queries, {}, None,
+                                  recall=hamming_recall)
+    check(all(len(row) == 10 for row in res.keys), "short result rows")
+    check([row[0] for row in res.keys] == [f"d{i}" for i in qi],
+          "a stored row did not find itself")
+    check(bool((res.scores.reshape(b, 10)[:, 0] == 0.0).all()),
+          "a self-match is not at Hamming 0")
+    out["cap"] = eng.indexes["emb"]._cap
+    out["mean_bucket_len"] = n / 1024
+    del dist
+    return out
+
+
+def phase_family(dev, base, queries, truth, graph_build) -> dict:
+    """The rest of the index family through Engine; each engine is freed
+    before the next is built."""
+    out = {}
+    for name, fn in (
+        ("ivfrabitq", lambda: family_rabitq(dev, base, queries, truth)),
+        ("scann", lambda: family_scann(dev, base, queries)),
+        ("hnsw_scan", lambda: family_hnsw_scan(dev, base, queries, truth)),
+        ("ivfpq_hnsw_quantizer", lambda: family_hnsw_quantizer(
+            dev, base[:HNSWQ_ROWS], queries)),
+        ("binaryivf", lambda: family_binaryivf(dev, n=len(base))),
+        ("hnsw_graph", lambda: family_hnsw_graph(
+            dev, base[:GRAPH_ROWS], queries[:GRAPH_B], graph_build)),
+    ):
+        t0 = time.monotonic()
+        out[name] = fn()
+        release_device_memory()
+        out[name]["seconds"] = time.monotonic() - t0
+        print(f"family {name}: {out[name]['seconds']:.1f}s "
+              + json.dumps(out[name]), flush=True)
+    out["reduced"] = REDUCED
+    return out
+
+
+def profile_search(eng, req, ranges=()) -> dict:
+    """Device time by kernel over one search (torch.profiler), the
+    device's busy share of the search's wall time, and the device time
+    under each named `ranges` (record_function) of the search."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -686,7 +1048,9 @@ def profile_search(eng, req) -> dict:
         dev_us = getattr(ev, "device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "cuda_time_total", 0.0)
-        if ev.device_type == torch.autograd.DeviceType.CUDA and dev_us:
+        # a record_function range shows on the device too: not a kernel
+        if (ev.device_type == torch.autograd.DeviceType.CUDA and dev_us
+                and ev.key not in ranges):
             rows.append((dev_us / 1e3, ev.key, ev.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
@@ -694,8 +1058,25 @@ def profile_search(eng, req) -> dict:
            "device_busy_share": busy / wall_ms if wall_ms else 0.0,
            "top": [{"kernel": k[:80], "ms": ms, "calls": c}
                    for ms, k, c in rows[:8]]}
+    if ranges:
+        got = {ev.key: getattr(ev, "device_time_total", 0.0) / 1e3
+               for ev in prof.key_averages() if ev.key in ranges}
+        res["ranges_ms"] = {name: got.get(name, 0.0) for name in ranges}
     print("profile " + json.dumps(res), flush=True)
     return res
+
+
+def launches_by_path(main_res, family, kernel) -> dict:
+    """A kernel's launches on each path of this run, each path's count
+    set to 0 just before it ran and read just after."""
+    out = {"ivfpq_full": main_res["launches"][kernel],
+           "ivfpq_probe": main_res["probe"]["launches"][kernel]}
+    for name, sub in family.items():
+        if isinstance(sub, dict):
+            for path, res in sub.items():
+                if isinstance(res, dict) and "launches" in res:
+                    out[f"{name}.{path}"] = res["launches"][kernel]
+    return out
 
 
 def nvidia_smi() -> str:
@@ -726,11 +1107,14 @@ def read_launches() -> dict:
 
 
 def build_all() -> None:
-    """Build every kernel library, one nvcc per source, all at once."""
+    """Build every kernel library (one nvcc per source) and the host HNSW
+    graph (g++), all at once."""
+    from vearch_tpu_torch.native import hnsw_graph
     from vearch_tpu_torch.ops import blockmax_scan as bms
     from vearch_tpu_torch.ops import probe_dots as pd
 
-    libs = (bms.LIBRARY, pd.LIBRARY)
+    kernels = (bms.LIBRARY, pd.LIBRARY)
+    libs = (*kernels, hnsw_graph.LIBRARY)
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(lib.load) for lib in libs]:
@@ -738,6 +1122,7 @@ def build_all() -> None:
     print(f"build: {time.monotonic() - t0:.2f}s", flush=True)
     for lib in libs:
         print(lib.build_log, flush=True)
+    for lib in kernels:
         print(f"sass {lib.source.name}: " + json.dumps(sass_counts(lib)),
               flush=True)
 
@@ -773,12 +1158,21 @@ def main() -> int:
     build_all()
 
     t0 = time.monotonic()
+    base, queries = build_data()
+    print(f"data: {time.monotonic() - t0:.1f}s", flush=True)
+    # the HNSW graph (host C++, single-threaded) builds on its own thread
+    # while the card works; phase_family reads it last
+    graph_pool = ThreadPoolExecutor(1)
+    graph_build = graph_pool.submit(build_graph_engine, base[:GRAPH_ROWS])
+
+    t0 = time.monotonic()
     phase_kernels(dev)
     phase_probe_kernels(dev)
     phase_blockmax_exact(dev)
     print(f"phase kernels: {time.monotonic() - t0:.1f}s", flush=True)
     t0 = time.monotonic()
-    main_res, queries, (a8, sc, vs), valid, index = phase_main(dev)
+    main_res, truth, (a8, sc, vs), valid, index = phase_main(
+        dev, base, queries)
     print("main_path " + json.dumps(main_res), flush=True)
     print(f"phase main: {time.monotonic() - t0:.1f}s", flush=True)
     for b in (64, 1024):
@@ -790,6 +1184,15 @@ def main() -> int:
                                   probes.to(torch.int32).contiguous(),
                                   index._bucket_resid8, index._bucket_lens,
                                   breakdown=True)
+    del index, a8, sc, vs, valid, q, probes
+    release_device_memory()
+    t0 = time.monotonic()
+    try:
+        family = phase_family(dev, base, queries, truth, graph_build)
+    finally:
+        graph_pool.shutdown(wait=True, cancel_futures=True)
+    print("family " + json.dumps(family), flush=True)
+    print(f"phase family: {time.monotonic() - t0:.1f}s", flush=True)
     kernels = [
         {"name": "int8_blockmax_scan", "route": "cuda",
          "design": "wgmma bf16 (A: int8 rows converted in registers, B: "
@@ -798,6 +1201,8 @@ def main() -> int:
          "source": "vearch_tpu_torch/csrc/blockmax_scan.cu",
          "replaces": "vearch_tpu/ops/pallas_kernels.py:201",
          "launches": main_res["launches"]["int8_blockmax_scan"],
+         "launches_by_path": launches_by_path(
+             main_res, family, "int8_blockmax_scan"),
          "max_abs_err": res["bmax_max_abs_err"], "ms": res["kernel_ms"],
          "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
          "bound_by": res["bound_by"], "library_ms": res["library_ms"]},
@@ -809,6 +1214,8 @@ def main() -> int:
          "source": "vearch_tpu_torch/csrc/probe_dots.cu",
          "replaces": "vearch_tpu/ops/pallas_kernels.py:54",
          "launches": main_res["probe"]["launches"]["ivf_probe_dots"],
+         "launches_by_path": launches_by_path(
+             main_res, family, "ivf_probe_dots"),
          "max_abs_err": pres["max_abs_err"], "ms": pres["kernel_ms"],
          "plain_ms": pres["plain_ms"], "bound_ms": pres["bound_ms"],
          "bound_by": pres["bound_by"], "library_ms": pres["library_ms"]},

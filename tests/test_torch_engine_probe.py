@@ -288,7 +288,19 @@ def test_ivfflat_matches_reference(metric, store_dtype):
           _search(port, SearchRequest, queries, filters=TAG_FILTER))
 
 
-def test_hnsw_quantizer_is_refused():
-    with pytest.raises(NotImplementedError):
-        Engine(_schema(pt, "IVFPQ", "L2", {"quantizer_type": "hnsw"}),
-               device="cpu")
+def test_hnsw_quantizer_is_refused(monkeypatch):
+    """quantizer_type=hnsw is served (tests/test_torch_index_family.py);
+    what is refused is a fall back to the flat quantizer: when the native
+    graph cannot be built, training raises."""
+    from vearch_tpu_torch.native import hnsw_graph
+
+    def broken():
+        raise RuntimeError("g++ failed building vearch_hnsw.cpp")
+
+    monkeypatch.setattr(hnsw_graph.LIBRARY, "load", broken)
+    eng = Engine(_schema(pt, "IVFPQ", "L2", {"quantizer_type": "hnsw"}),
+                 device="cpu")
+    eng.upsert(_docs(n=512)[0])
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        eng.build_index()
+    assert not eng.indexes["emb"].trained

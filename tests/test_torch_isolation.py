@@ -32,7 +32,16 @@ try:
 except RuntimeError:
     refused = True
 Engine(schema, device="cpu")
-print(json.dumps({"modules": names, "bad": bad, "refused": refused}))
+# the native HNSW graph loads the port's own build, never vearch_tpu's
+import os
+from vearch_tpu_torch.native.hnsw_graph import LIBRARY, HnswGraph
+HnswGraph(8).add([[0.0] * 8])
+ref_pkg = os.path.join(os.getcwd(), "vearch_tpu") + os.sep
+loaded = sorted(getattr(m, "__file__", None) or "" for m in
+                list(sys.modules.values()))
+print(json.dumps({"modules": names, "bad": bad, "refused": refused,
+                  "hnsw": LIBRARY.path,
+                  "from_ref": [f for f in loaded if f.startswith(ref_pkg)]}))
 """
 
 
@@ -48,7 +57,15 @@ def test_port_imports_no_jax_and_needs_explicit_cpu():
     for mod in ("vearch_tpu_torch.ops.blockmax_scan",
                 "vearch_tpu_torch.ops.probe_dots",
                 "vearch_tpu_torch.ops._cuda_build",
+                "vearch_tpu_torch.ops.binary_scan",
+                "vearch_tpu_torch.ops.scann",
                 "vearch_tpu_torch.engine.engine",
-                "vearch_tpu_torch.index.ivf", "vearch_tpu_torch.convert"):
+                "vearch_tpu_torch.index.ivf", "vearch_tpu_torch.index.binary",
+                "vearch_tpu_torch.index.hnsw", "vearch_tpu_torch.index.scann",
+                "vearch_tpu_torch.native.hnsw_graph",
+                "vearch_tpu_torch.convert"):
         assert mod in got["modules"]
     assert got["refused"] is True
+    assert got["from_ref"] == []
+    assert got["hnsw"].startswith(
+        os.path.join(REPO, "vearch_tpu_torch", "_build") + os.sep)

@@ -1,12 +1,14 @@
 """State carried across from vearch_tpu.
 
-`index_state_from_reference` takes what vearch_tpu's
-`IVFPQIndex.dump_state()` returns (numpy arrays: `centroids`,
-`codebooks`, `indexed_count`) or its `IVFFlatIndex.dump_state()`
-(`centroids`, `indexed_count`; no codebooks) and gives the dict the
-port's `load_state` takes. Loading re-absorbs the raw rows through the
-port's own assign/encode/quantize path, so both packages then serve the
-same trained index.
+`index_state_from_reference` takes what a vearch_tpu index's
+`dump_state()` returns and gives the dict the port's `load_state` takes:
+- IVFPQ and SCANN: numpy `centroids`, `codebooks`, `indexed_count`;
+- IVFFLAT, BINARYIVF and IVFRABITQ: `centroids`, `indexed_count`;
+- HNSW in graph mode: `graph_blob` (the native graph as it saves
+  itself, which the port's copy of the graph loads) and `indexed_count`;
+  in scan mode the reference keeps no state ({}).
+Loading re-absorbs the raw rows through the port's own assign/encode/
+quantize path, so both packages then serve the same trained index.
 """
 
 from __future__ import annotations
@@ -17,9 +19,13 @@ import numpy as np
 
 
 def index_state_from_reference(state: dict[str, Any]) -> dict[str, Any]:
-    """Validate and normalise a reference IVFPQ state dict."""
+    """Validate and normalise a reference index state dict."""
     if not state:
         return {}
+    if "graph_blob" in state:
+        return {"graph_blob": np.ascontiguousarray(state["graph_blob"],
+                                                   dtype=np.uint8),
+                "indexed_count": np.int64(state["indexed_count"])}
     if "opq_R" in state:
         raise NotImplementedError(
             "OPQ state is not ported yet (ROADMAP queue 1 item 3)")

@@ -121,21 +121,24 @@ class Engine:
                 self.table.validate(
                     {k: v for k, v in doc.items() if k != "_id"}
                 )
+            # wire-format vectors decode through the index (packed
+            # binary fields unpack to 0/1 floats)
             mats = {}
             for f in vf:
+                idx = self.indexes[f.name]
                 store = self.vector_stores[f.name]
                 have = [i for i, d in enumerate(docs)
                         if d.get(f.name) is not None]
                 if len(have) == len(docs):
-                    mats[f.name] = np.asarray(
-                        [d[f.name] for d in docs], dtype=np.float32
-                    ).reshape(len(docs), store.dimension)
+                    mats[f.name] = idx.decode_input(np.asarray(
+                        [d[f.name] for d in docs]
+                    ).reshape(len(docs), idx.input_dim))
                     continue
                 out = np.zeros((len(docs), store.dimension), np.float32)
                 if have:
-                    out[have] = np.asarray(
-                        [docs[i][f.name] for i in have], dtype=np.float32
-                    ).reshape(len(have), store.dimension)
+                    out[have] = idx.decode_input(np.asarray(
+                        [docs[i][f.name] for i in have]
+                    ).reshape(len(have), idx.input_dim))
                 latest: dict[str, int] = {}  # key -> out row in this batch
                 for i, d in enumerate(docs):
                     key = str(d["_id"]) if "_id" in d else None
@@ -303,8 +306,11 @@ class Engine:
         for name, queries in req.vectors.items():
             index = self.indexes[name]
             store = self.vector_stores[name]
-            queries = np.asarray(queries, dtype=np.float32).reshape(
-                -1, store.dimension)
+            queries = np.asarray(queries)
+            if queries.ndim == 1:
+                queries = queries[None, :]
+            queries = index.decode_input(
+                queries.reshape(queries.shape[0], index.input_dim))
             queries_by_field[name] = queries
             b_rows = int(queries.shape[0])
             # pad rows up to the declared bucket with a REAL row (a zero

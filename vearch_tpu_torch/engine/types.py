@@ -84,6 +84,14 @@ class FieldSchema:
     def is_vector(self) -> bool:
         return self.data_type is DataType.VECTOR
 
+    @property
+    def wire_dim(self) -> int:
+        """Vector length on the wire: binary indexes pack 8 bits per
+        uint8 byte (faiss binary vector format)."""
+        if self.index and self.index.index_type.upper() == "BINARYIVF":
+            return self.dimension // 8
+        return self.dimension
+
 @dataclass
 class TableSchema:
     """Per-partition table schema (reference: api_data/table.h:44 `TableInfo`).

@@ -35,6 +35,17 @@ class VectorIndex(abc.ABC):
         self.indexed_count = 0  # rows absorbed into the index structure
         self._absorb_lock = threading.Lock()
 
+    @property
+    def input_dim(self) -> int:
+        """Wire-format vector length (binary indexes pack 8 bits a byte,
+        as faiss binary vectors are d/8 uint8)."""
+        return self.store.dimension
+
+    def decode_input(self, batch: np.ndarray) -> np.ndarray:
+        """Decode wire-format vectors [b, input_dim] into the stored
+        representation [b, dimension] (identity for float indexes)."""
+        return np.asarray(batch, dtype=np.float32)
+
     @abc.abstractmethod
     def search(
         self,

@@ -1,11 +1,15 @@
-"""Docid-ordered int8 device mirror, the port of
-vearch_tpu/index/int8_mirror.py (int8 storage only).
+"""Docid-ordered compressed device mirror, the port of
+vearch_tpu/index/int8_mirror.py.
 
 Append-only host arrays (codes, per-row scale, squared norm) with a
 lazily flushed device copy: a capacity change re-uploads everything,
 otherwise only the rows appended since the last flush are copied, in
 place. Capacity stays a multiple of 512 — the block-max scan reduces
-each 512-row block to its maximum.
+each 512-row block to its maximum. `storage` picks the row payload:
+"int8" (per-row scaled int8, d bytes a row) or "bits" (packed sign
+planes, ceil(d/8) bytes a row: IVFRABITQ's stage-0 tier,
+ops/binary_scan.pack_sign_rows). The reference's "int4" is not ported
+yet (ROADMAP queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ import numpy as np
 import torch
 
 from vearch_tpu_torch.device import resolve_device
+from vearch_tpu_torch.ops.binary_scan import pack_sign_rows
 
 
 def quantize_rows(rows: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -31,14 +36,20 @@ def quantize_rows(rows: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]
 
 class Int8Mirror:
     def __init__(self, dimension: int, storage: str = "int8", device=None):
-        if str(storage).lower() != "int8":
+        self.storage = str(storage).lower()
+        if self.storage == "int4":
             raise NotImplementedError(
-                f"mirror storage {storage!r} is not ported yet (ROADMAP "
-                f"queue 1: int4 and bit-plane mirrors)"
-            )
+                "int4 mirror storage is not ported yet (ROADMAP queue 1 "
+                "item 3)")
+        if self.storage == "int8":
+            self._row_width, self._row_dtype = dimension, np.int8
+        elif self.storage == "bits":  # byte-padded packed sign planes
+            self._row_width, self._row_dtype = -(-dimension // 8), np.uint8
+        else:
+            raise ValueError(f"unknown mirror storage {storage!r}")
         self.dimension = dimension
         self.device = resolve_device(device)
-        self._h8 = np.zeros((0, dimension), dtype=np.int8)
+        self._h8 = np.zeros((0, self._row_width), dtype=self._row_dtype)
         self._h_scale = np.zeros(0, dtype=np.float32)
         self._h_vsq = np.zeros(0, dtype=np.float32)
         self._n = 0
@@ -54,6 +65,12 @@ class Int8Mirror:
     def count(self) -> int:
         return self._n
 
+    def device_bytes(self) -> int:
+        """Bytes of the flushed mirror: row payload plus per-row scale and
+        |v|^2, at the 512-aligned capacity."""
+        cap = self._h8.shape[0]
+        return cap * self._row_width + 2 * cap * 4
+
     def append_quantized(
         self, q8: np.ndarray, scale: np.ndarray, vsq: np.ndarray,
         start: int | None = None,
@@ -65,7 +82,7 @@ class Int8Mirror:
             if self._h8.shape[0] < need:
                 cap = max(need, self._h8.shape[0] * 2, 1024)
                 cap = -(-cap // 512) * 512
-                g8 = np.zeros((cap, self.dimension), dtype=np.int8)
+                g8 = np.zeros((cap, self._row_width), dtype=self._row_dtype)
                 gs = np.zeros(cap, dtype=np.float32)
                 gv = np.zeros(cap, dtype=np.float32)
                 g8[: self._n] = self._h8[: self._n]
@@ -83,11 +100,12 @@ class Int8Mirror:
                 self._d_rows = start
 
     def append(self, rows: np.ndarray, start: int | None = None) -> None:
-        self.append_quantized(*quantize_rows(rows), start=start)
+        quant = pack_sign_rows if self.storage == "bits" else quantize_rows
+        self.append_quantized(*quant(rows), start=start)
 
     def flush(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Device views [cap, d] int8 / [cap] f32 / [cap] f32; rows >=
-        count are padding."""
+        """Device views [cap, width] row payload / [cap] f32 / [cap] f32;
+        rows >= count are padding."""
         with self._flush_lock:
             n = self._n
             cap = self._h8.shape[0]

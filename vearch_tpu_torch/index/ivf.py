@@ -14,11 +14,18 @@
   the probe scan over int8 residual buckets (the probe-dots Hopper
   kernel on a GPU, whatever `probe_kernel` says; on the CPU its plain
   version with "pallas" and the reference's XLA loop with "xla"). Both
-  rerank their candidates exactly against the raw store.
+  rerank their candidates exactly against the raw store, unless
+  `_exact_rerank_enabled` says no (SCANN's `reordering: false`);
+- `quantizer_type: hnsw` puts a host HNSW graph over the centroids
+  (native/hnsw_graph.py): absorb assigns rows by a graph walk, and the
+  probe regime takes its probe cells from the graph (`probes=`), -1
+  slots included. Where the reference falls back to the flat quantizer
+  with a warning when the native build fails, the port raises;
+- `_fit_codebooks` / `_encode_rows` are the codebook hooks SCANN
+  overrides.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: mesh serving and mesh training, OPQ, the HNSW coarse quantizer,
-int4 mirrors and disk stores.
+item: mesh serving and mesh training, OPQ, int4 mirrors and disk stores.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from vearch_tpu_torch.engine.types import IndexParams, MetricType
 from vearch_tpu_torch.index.base import VectorIndex
 from vearch_tpu_torch.index.int8_mirror import Int8Mirror
 from vearch_tpu_torch.index.registry import register_index
+from vearch_tpu_torch.native.hnsw_graph import HnswGraph
 from vearch_tpu_torch.ops import ivf as ivf_ops
 from vearch_tpu_torch.ops import kmeans as km
 from vearch_tpu_torch.ops import pq as pq_ops
@@ -54,10 +62,11 @@ class _IVFBase(VectorIndex):
         self.default_nprobe = int(params.get("nprobe", 16))
         self.train_sample = int(params.get("training_sample", 262_144))
         self.train_iters = int(params.get("train_iters", 10))
-        if str(params.get("quantizer_type", "flat")).lower() != "flat":
-            raise NotImplementedError(
-                "quantizer_type=hnsw is not ported yet (ROADMAP queue 1 "
-                "item 5)")
+        # coarse quantizer: the [B, nlist] product ("flat") or a host HNSW
+        # graph over the centroids ("hnsw", the reference's
+        # quantizer_type_), which keeps probe selection on the host
+        self.quantizer_type = str(params.get("quantizer_type", "flat")).lower()
+        self._coarse_graph = None
         if bool(params.get("mesh_train", False)):
             raise NotImplementedError(
                 "mesh_train is not ported yet (ROADMAP queue 1 item 10)")
@@ -97,14 +106,44 @@ class _IVFBase(VectorIndex):
             self._to_device(x), k=self.nlist, iters=self.train_iters
         )
         self._members = [[] for _ in range(self.nlist)]
+        self._build_coarse_graph()
         self._train_extra(x)
         self.trained = True
 
+    def _build_coarse_graph(self) -> None:
+        """The HNSW graph over the centroids (M=16, efConstruction=200,
+        the graph's fixed seed), for quantizer_type=hnsw. A failed native
+        build raises: the reference would serve the flat quantizer
+        instead, which hides what ran."""
+        if self.quantizer_type != "hnsw":
+            return
+        g = HnswGraph(self.store.dimension, m=16, ef_construction=200,
+                      ip=False)
+        g.add(_host(self.centroids))
+        self._coarse_graph = g
+
     def _assign(self, rows: np.ndarray) -> np.ndarray:
-        """Nearest-centroid cell of each row (bf16 product, as the
-        reference assigns)."""
+        """Cell of each row: nearest centroid by the bf16 product, as the
+        reference assigns, or the host graph's walk (quantizer_type=hnsw,
+        ef 96)."""
+        if self._coarse_graph is not None:
+            _s, ids = self._coarse_graph.search(rows, 1, ef=96)
+            return ids[:, 0].astype(np.int64)
         return _host(km.assign_clusters(self._to_device(rows),
                                         self.centroids))
+
+    def _host_probes(self, q: np.ndarray, nprobe: int
+                     ) -> torch.Tensor | None:
+        """[B, nprobe] int32 probe cells from the host graph, on the
+        device, or None for the product's selection. A -1 slot (the graph
+        came up short) passes through: the scans mask that step, where
+        clamping it to a real cell would scan that cell twice and
+        duplicate its docids."""
+        if self._coarse_graph is None:
+            return None
+        _s, ids = self._coarse_graph.search(
+            q, min(nprobe, self.nlist), ef=max(2 * nprobe, 64))
+        return torch.from_numpy(ids.astype(np.int32)).to(self.device)
 
     def _train_extra(self, sample: np.ndarray) -> None:
         pass
@@ -188,6 +227,11 @@ class _IVFBase(VectorIndex):
         r = int(p.get("rerank", self.params.get("rerank", max(10 * k, 128))))
         return max(r, k)
 
+    def _exact_rerank_enabled(self, params: dict | None) -> bool:
+        """Whether the exact raw-store rerank runs after the quantized
+        scan (SCANN's reordering=false turns it off)."""
+        return True
+
     def _pad_to_k(
         self, scores: np.ndarray, ids: np.ndarray, k: int
     ) -> tuple[np.ndarray, np.ndarray]:
@@ -222,6 +266,7 @@ class _IVFBase(VectorIndex):
         if "centroids" not in state:
             return
         self.centroids = self._to_device(state["centroids"])
+        self._build_coarse_graph()  # rebuilt, not carried: cheap
         self.trained = True
         self._members = [[] for _ in range(self.nlist)]
         self.indexed_count = 0
@@ -273,11 +318,12 @@ class IVFFlatIndex(_IVFBase):
             else self.metric
         )
         valid = self._valid_device(valid_mask, self.store.count)
+        probes = self._host_probes(q, nprobe)
         ivf_ops.note_dispatch("ivfflat_scan")
         scores, ids = ivf_ops.ivfflat_candidates(
             self._to_device(q).to(self.store.store_dtype), self.centroids,
             self._bucket_vecs, self._bucket_sqnorm, self._bucket_ids, valid,
-            nprobe, min(max(r, k), 2048), metric,
+            nprobe, min(max(r, k), 2048), metric, probes=probes,
         )
         # the scores are exact: no rerank (cosine rides IP on normalized
         # vectors, which is the cosine itself)
@@ -313,10 +359,9 @@ class IVFPQIndex(_IVFBase):
         self._bucket_scale: torch.Tensor | None = None   # [nlist] f32
         self._bucket_vsq: torch.Tensor | None = None     # [nlist, cap] f32
         self._bucket_lens: torch.Tensor | None = None    # [nlist] int32
-        self._mirror = Int8Mirror(
-            store.dimension, storage=str(params.get("mirror_dtype", "int8")),
-            device=self.device,
-        )
+        self.mirror_storage = str(params.get("mirror_dtype", "int8")).lower()
+        self._mirror = Int8Mirror(store.dimension, storage=self.mirror_storage,
+                                  device=self.device)
 
     @staticmethod
     def _check_mesh(value) -> None:
@@ -328,20 +373,32 @@ class IVFPQIndex(_IVFBase):
                 "mesh_serving is not ported yet (ROADMAP queue 1 item 10)")
 
     def _train_extra(self, sample: np.ndarray) -> None:
-        x = self._to_device(sample)
-        assign = km.assign_clusters(x, self.centroids)
-        resid = x - self.centroids[assign]
-        self.codebooks = pq_ops.train_pq(
-            resid, m=self.m, ksub=self.ksub, iters=self.train_iters)
+        assign = _host(km.assign_clusters(self._to_device(sample),
+                                          self.centroids))
+        resid = sample - _host(self.centroids)[assign]
+        self.codebooks = self._fit_codebooks(resid, sample)
         self._codes = np.zeros((0, self.m), dtype=np.uint8)
+
+    def _fit_codebooks(self, resid: np.ndarray, sample: np.ndarray
+                       ) -> torch.Tensor:
+        """Codebook trainer hook (SCANN trains anisotropic codebooks;
+        `sample` is the rows the residuals came from)."""
+        return pq_ops.train_pq(self._to_device(resid), m=self.m,
+                               ksub=self.ksub, iters=self.train_iters)
+
+    def _encode_rows(self, resid: np.ndarray, rows: np.ndarray
+                     ) -> np.ndarray:
+        """Encoder hook (the same seam as `_fit_codebooks`): [n, m] uint8
+        codes of the residuals."""
+        return _host(pq_ops.encode_pq(self._to_device(resid),
+                                      self.codebooks))
 
     def _absorb_rows(
         self, rows: np.ndarray, assign: np.ndarray, start_docid: int
     ) -> None:
         cents = _host(self.centroids)
         resid = rows - cents[assign]
-        codes = _host(pq_ops.encode_pq(self._to_device(resid),
-                                       self.codebooks))
+        codes = self._encode_rows(resid, rows)
         if self._codes is None:
             self._codes = np.zeros((0, self.m), dtype=np.uint8)
         need = start_docid + rows.shape[0]
@@ -388,43 +445,55 @@ class IVFPQIndex(_IVFBase):
             mode = ("full" if self.indexed_count <= self.full_scan_limit
                     else "probe")
         qt = self._to_device(q)
+        rerank = self._exact_rerank_enabled(p)
         if mode != "full":
-            cand_i = self._probe_candidates(qt, k, valid_mask, p, metric)
-            return self._rerank(q, cand_i, k)
-        approx8, scale, vsq = self._mirror.flush()
-        valid = to_device_mask(valid_mask, self.indexed_count,
-                               approx8.shape[0], self.device)
-        r = min(self._rerank_depth(k, params), max(self.indexed_count, 1))
-        topk_mode = p.get("topk_mode", self.params.get("topk_mode", "auto"))
-        fused = p.get("fused_rerank", self.params.get("fused_rerank", True))
-        if scan_kernel == "pallas":
-            # the reference's one-pass block-max entry point; on a GPU
-            # both scan_kernel values reach the same Hopper kernel
-            ivf_ops.note_dispatch("pallas_blockmax_scan")
-            _, cand_i = int8_blockmax_scan(
-                qt, approx8, scale, vsq, valid, max(r, k),
-                metric is MetricType.L2,
-            )
-        elif fused:
-            base, base_sqnorm, _ = self.store.device_buffer()
-            ivf_ops.note_dispatch("fused_scan_rerank")
-            scores, ids = ivf_ops.int8_scan_rerank(
-                qt, approx8, scale, vsq, valid, base, base_sqnorm,
-                max(r, k), k, scan_metric=metric, rerank_metric=self.metric,
-                topk_mode=topk_mode,
-            )
-            return self._pad_to_k(_host(scores), _host(ids), k)
+            cand_s, cand_i = self._probe_candidates(q, qt, k, valid_mask, p,
+                                                    metric)
         else:
-            ivf_ops.note_dispatch("scan")
-            _, cand_i = ivf_ops.int8_scan_candidates(
-                qt, approx8, scale, vsq, valid, max(r, k), metric, topk_mode,
-            )
+            approx8, scale, vsq = self._mirror.flush()
+            valid = to_device_mask(valid_mask, self.indexed_count,
+                                   approx8.shape[0], self.device)
+            r = min(self._rerank_depth(k, p), max(self.indexed_count, 1))
+            topk_mode = p.get("topk_mode",
+                              self.params.get("topk_mode", "auto"))
+            fused = p.get("fused_rerank",
+                          self.params.get("fused_rerank", True))
+            if scan_kernel == "pallas":
+                # the reference's one-pass block-max entry point; on a
+                # GPU both scan_kernel values reach the same Hopper kernel
+                ivf_ops.note_dispatch("pallas_blockmax_scan")
+                cand_s, cand_i = int8_blockmax_scan(
+                    qt, approx8, scale, vsq, valid, max(r, k),
+                    metric is MetricType.L2,
+                )
+            elif fused and rerank:
+                base, base_sqnorm, _ = self.store.device_buffer()
+                ivf_ops.note_dispatch("fused_scan_rerank")
+                scores, ids = ivf_ops.int8_scan_rerank(
+                    qt, approx8, scale, vsq, valid, base, base_sqnorm,
+                    max(r, k), k, scan_metric=metric,
+                    rerank_metric=self.metric, topk_mode=topk_mode,
+                )
+                return self._pad_to_k(_host(scores), _host(ids), k)
+            else:
+                ivf_ops.note_dispatch("scan")
+                cand_s, cand_i = ivf_ops.int8_scan_candidates(
+                    qt, approx8, scale, vsq, valid, max(r, k), metric,
+                    topk_mode,
+                )
+        if not rerank:
+            # the quantized scores as they are, best first: no raw-store
+            # gather
+            return self._pad_to_k(_host(cand_s[:, :k]), _host(cand_i[:, :k]),
+                                  k)
         return self._rerank(q, cand_i, k)
 
-    def _probe_candidates(self, qt: torch.Tensor, k: int, valid_mask,
-                          p: dict, metric: MetricType) -> torch.Tensor:
-        """Probe regime: [B, r] candidate docids (-1 for masked) from the
-        bucket-grouped int8 residuals, republished after any absorb."""
+    def _probe_candidates(self, q: np.ndarray, qt: torch.Tensor, k: int,
+                          valid_mask, p: dict, metric: MetricType
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Probe regime: ([B, r] scores, [B, r] docids, -1 for masked)
+        from the bucket-grouped int8 residuals, republished after any
+        absorb."""
         self._publish()
         nprobe = self._nprobe(p)
         r = min(self._rerank_depth(k, p), self._cap * nprobe, 2048)
@@ -438,13 +507,15 @@ class IVFPQIndex(_IVFBase):
         if kernel not in ("xla", "pallas"):
             raise ValueError(f"probe_kernel must be xla|pallas, got "
                              f"{kernel!r}")
+        # host probes (quantizer_type=hnsw) reach either arm as `probes`
+        probes = self._host_probes(q, nprobe)
         ivf_ops.note_dispatch("probe_scan")
         args = (qt, self.centroids, self._bucket_resid8, self._bucket_scale,
                 self._bucket_vsq, self._bucket_ids, valid, nprobe, max(r, k))
         if kernel == "pallas" or self.device.type == "cuda":
             return ivfpq_probe_search(*args, metric is MetricType.L2,
-                                      self._bucket_lens)[1]
-        return ivf_ops.ivfpq_candidates(*args, metric)[1]
+                                      self._bucket_lens, probes)
+        return ivf_ops.ivfpq_candidates(*args, metric, probes)
 
     def _rerank(self, q: np.ndarray, cand_i: torch.Tensor, k: int
                 ) -> tuple[np.ndarray, np.ndarray]:

@@ -1,20 +1,25 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's native code.
 
 Each kernel source under vearch_tpu_torch/csrc/ is compiled with nvcc for
 sm_90a into a shared library with a plain C interface, loaded with
-ctypes. The library lands in vearch_tpu_torch/_build/ under a name that
-carries a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one is loaded as it is. A build happens at first use,
-on the machine with the GPU; a failed build raises.
+ctypes (`CudaLibrary`). The host-side HNSW graph (csrc/vearch_hnsw.cpp)
+is a CPython extension module, compiled with g++ against the running
+interpreter's headers and imported from its file (`HostExtension`).
+Either lands in vearch_tpu_torch/_build/ under a name that carries a
+hash of the source and the flags, so an edited source rebuilds and an
+unchanged one is loaded as it is. A build happens at first use; a failed
+build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 import tempfile
 import threading
 import time
@@ -65,30 +70,63 @@ class CudaLibrary:
             return self._lib
 
     def _build_and_load(self) -> ctypes.CDLL:
-        src = self.source.read_bytes()
-        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
-        so = BUILD_DIR / f"{self.source.stem}_{digest.hexdigest()[:16]}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            t0 = time.monotonic()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(self.source)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed building {self.source.name}"
-                                   f":\n{proc.stdout}{proc.stderr}")
-            os.replace(tmp, so)
-            self.build_log = (f"built {so.name} in "
-                              f"{time.monotonic() - t0:.1f}s\n"
-                              f"{proc.stdout}{proc.stderr}")
-        self.path = str(so)
+        self.path, self.build_log = _build(self.source, [_nvcc()],
+                                           NVCC_FLAGS, "nvcc")
         lib = ctypes.CDLL(self.path)
         for name, argtypes in self.functions.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         return lib
+
+
+class HostExtension:
+    """One csrc/ C++ source built with g++ into a CPython extension module
+    named `module` (its PyInit_<module>), built against this
+    interpreter's headers and imported from the built file."""
+
+    def __init__(self, source: str, module: str):
+        self.source = PKG / "csrc" / source
+        self.module = module
+        self.build_log = ""
+        self.path = ""
+        self._mod = None
+        self._lock = threading.Lock()
+
+    def load(self):
+        """Build (if needed) and import the module; returns it."""
+        with self._lock:
+            if self._mod is None:
+                flags = ["-O3", "-shared", "-fPIC", "-std=c++17",
+                         f"-I{sysconfig.get_paths()['include']}"]
+                self.path, self.build_log = _build(self.source, ["g++"],
+                                                   flags, "g++")
+                spec = importlib.util.spec_from_file_location(self.module,
+                                                              self.path)
+                mod = importlib.util.module_from_spec(spec)
+                spec.loader.exec_module(mod)
+                self._mod = mod
+            return self._mod
+
+
+def _build(source: Path, compiler: list[str], flags: list[str],
+           name: str) -> tuple[str, str]:
+    """Compile `source` into _build/<stem>_<hash>.so unless that file is
+    there; returns (path, build log, empty when the file was reused)."""
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode())
+    so = BUILD_DIR / f"{source.stem}_{digest.hexdigest()[:16]}.so"
+    if so.exists():
+        return str(so), ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.monotonic()
+    proc = subprocess.run([*compiler, *flags, "-o", tmp, str(source)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"{name} failed building {source.name}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, so)
+    return str(so), (f"built {so.name} in {time.monotonic() - t0:.1f}s\n"
+                     f"{proc.stdout}{proc.stderr}")

@@ -25,6 +25,9 @@ reranks them exactly against the raw store:
   on a CUDA tensor — so the [B, N] score matrix is never built. The
   "exact" branch keeps the reference's plain top-k over a full score
   matrix (`torch.matmul`, as the reference left that product to XLA).
+- `select_topk_scores`: the reference's form of that selection, over a
+  materialised [B, N] score matrix; the binary stage 0
+  (`ops/binary_scan.py`) selects through it.
 - `exact_rerank`: candidate rows gathered from the raw store and
   re-scored at f32.
 - `int8_scan_rerank`: both, the reference's fused default path.
@@ -47,9 +50,9 @@ from vearch_tpu_torch.ops.distance import NEG_INF, sqnorms, stable_topk
 
 # Optional dispatch ledger: when a list is installed here, index call
 # sites append one tag per search program they run, with the reference's
-# tag names (fused_scan_rerank, pallas_blockmax_scan, probe_scan,
-# ivfflat_scan, rerank, flat_scan) so the two packages' ledgers compare
-# line by line.
+# tag names (fused_scan_rerank, pallas_blockmax_scan, scan, probe_scan,
+# ivfflat_scan, rerank, flat_scan, binary_refine_rerank) so the two
+# packages' ledgers compare line by line.
 _dispatch_ledger: list | None = None
 
 
@@ -227,19 +230,67 @@ def _select_topk(
              or (topk_mode == "auto" and nblk >= nb * 4))
     )
     if not use_block:
-        top_s, ids = stable_topk(
-            _int8_scores(queries, approx8, scale, vsq, valid, l2), r)
-        ids = ids.to(torch.int32)
-        # masked slots (filtered/deleted/padding) carry -inf: id -1 so the
-        # rerank cannot resurrect them
-        return top_s, torch.where(torch.isfinite(top_s), ids,
-                                  torch.full_like(ids, -1))
+        return select_topk_scores(
+            _int8_scores(queries, approx8, scale, vsq, valid, l2), r,
+            "exact")
     nb = min(2 * nb + 8, nblk)
     bmax = int8_blockmax_stage1(
         queries.to(torch.bfloat16).contiguous(), approx8, scale, vsq,
         valid, sqnorms(queries).contiguous(), l2)
     return blockmax_stage2(queries, approx8, scale, vsq, valid, bmax, nb,
                            min(r, nb * BLOCK), l2)
+
+
+SELECT_CHUNK = 128  # queries per stage-2 gather of `select_topk_scores`
+
+
+def select_topk_scores(
+    scores: torch.Tensor,  # [B, N_pad] f32, -inf where masked
+    r: int,
+    topk_mode: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-r over a materialised score matrix, the reference's
+    `_select_topk`: the same block-max gate as the int8 `_select_topk`,
+    bf16-rounded 512-row block maxima, the top min(2 nb + 8, nblk)
+    blocks, then the top-r of those blocks' f32 scores (gathered
+    SELECT_CHUNK queries at a time). Returns ([B, r] scores, [B, r]
+    int32 ids, -1 where the score is not finite)."""
+    b, n_pad = scores.shape
+    r = min(r, n_pad)
+    nb = max(32, r // 4)
+    nblk = n_pad // BLOCK
+    use_block = (
+        n_pad % BLOCK == 0
+        and nblk >= 1
+        and (topk_mode == "blockmax"
+             or (topk_mode == "auto" and nblk >= nb * 4))
+    )
+    if not use_block:
+        top_s, ids = stable_topk(scores, r)
+        ids = ids.to(torch.int32)
+    else:
+        nb = min(2 * nb + 8, nblk)
+        s3f = scores.view(b, nblk, BLOCK)
+        # bf16 rounding is monotone: the rounded max is the max of the
+        # rounded scores, without a bf16 copy of the matrix
+        bmax = s3f.amax(-1).to(torch.bfloat16).float()  # [B, nblk]
+        top_blocks = stable_topk(bmax, nb)[1]            # [B, nb]
+        r = min(r, nb * BLOCK)
+        top_s = torch.empty((b, r), dtype=torch.float32, device=scores.device)
+        ids = torch.empty((b, r), dtype=torch.int32, device=scores.device)
+        for lo in range(0, b, SELECT_CHUNK):
+            hi = min(lo + SELECT_CHUNK, b)
+            blocks = top_blocks[lo:hi]
+            gathered = torch.gather(
+                s3f[lo:hi], 1, blocks[:, :, None].expand(-1, -1, BLOCK))
+            s, pos = stable_topk(gathered.reshape(hi - lo, nb * BLOCK), r)
+            top_s[lo:hi] = s
+            ids[lo:hi] = (torch.gather(blocks, 1, pos // BLOCK) * BLOCK
+                          + pos % BLOCK)
+    # masked slots (filtered/deleted/padding) carry -inf: id -1 so the
+    # rerank cannot resurrect them
+    return top_s, torch.where(torch.isfinite(top_s), ids,
+                              torch.full_like(ids, -1))
 
 
 def int8_scan_candidates(

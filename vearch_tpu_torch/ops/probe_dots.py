@@ -191,9 +191,13 @@ def ivfpq_probe_search(
     r: int,
     l2: bool = True,
     bucket_lens: torch.Tensor | None = None,  # [nlist] int32 live rows
+    probes: torch.Tensor | None = None,  # [B, nprobe] int32, -1 = no cell
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Probe-mode IVFPQ search: top-nprobe coarse cells, the probe-dots
-    kernel over them, then the top-r of the assembled scores.
+    """Probe-mode IVFPQ search: top-nprobe coarse cells (or the given
+    `probes`, the HNSW coarse quantizer's host selection), the probe-dots
+    kernel over them, then the top-r of the assembled scores. A probe
+    slot of -1 reaches the kernel as it is (it writes zeros there) and
+    its slots score -inf here.
 
     Per probed cell c, with approx v = cent_c + s_c * r8:
         q.v = q.cent_c + s_c * (q.r8);  L2 = -(|q|^2 - 2 q.v + |v|^2)
@@ -210,20 +214,24 @@ def ivfpq_probe_search(
     b = queries.shape[0]
     cap = bucket_resid8.shape[1]
     qc = coarse_dots(queries, centroids)  # [B, nlist], reused below
-    probes = select_probes(qc, centroids, nprobe)  # [B, nprobe]
+    if probes is None:
+        probes = select_probes(qc, centroids, nprobe)  # [B, nprobe]
+    nprobe = probes.shape[1]
     dots8 = ivf_probe_dots(queries.to(torch.bfloat16).contiguous(),
                            probes.to(torch.int32).contiguous(),
                            bucket_resid8, bucket_lens)  # [B, nprobe, cap]
-    qc_p = torch.gather(qc, 1, probes)
-    scale_p = bucket_scale[probes]
+    pc = torch.clamp(probes, min=0).long()
+    qc_p = torch.gather(qc, 1, pc)
+    scale_p = bucket_scale[pc]
     dots = qc_p[:, :, None] + scale_p[:, :, None] * dots8
-    ids_p = bucket_ids[probes]  # [B, nprobe, cap]
+    ids_p = bucket_ids[pc]  # [B, nprobe, cap]
     if l2:
         scores = -(sqnorms(queries)[:, None, None] - 2.0 * dots
-                   + bucket_vsq[probes])
+                   + bucket_vsq[pc])
     else:
         scores = dots
-    ok = (ids_p >= 0) & valid[torch.clamp(ids_p, min=0).long()]
+    ok = ((probes >= 0)[:, :, None] & (ids_p >= 0)
+          & valid[torch.clamp(ids_p, min=0).long()])
     scores = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
     top_s, pos = stable_topk(scores.reshape(b, nprobe * cap),
                              min(r, nprobe * cap))
