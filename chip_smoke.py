@@ -10,7 +10,7 @@ Phases:
    nvcc's -Xptxas -v report (registers, shared memory, spills) and the
    count of tensor-core instructions (HGMMA, HMMA) in each library's
    SASS, where cuobjdump is present. Then the data (1M x 128 rows from
-   seed 0), and the HNSW graph of phase 4 starts building on its own
+   seed 0), and the HNSW graph of phase 5 starts building on its own
    thread.
 2. Kernels vs their plain versions on the card, case by case, with
    kernel / plain / library times and the card's bound for the same work:
@@ -42,7 +42,30 @@ Phases:
    the index's real mirror, buckets and probes) are then compared as in
    phase 2; the probe kernel's time is split into its pair grouping, the
    kernel alone, its zero-writing path and an output memset.
-4. The rest of the index family (`phase_family`), each engine freed
+4. The rest of the engine (`phase_engine`), on a fresh engine of the
+   main path's rows, index and width with two scalar fields from a
+   seeded generator (`cat` int in [0, 100) with an INVERTED index, `tag`
+   one of t0..t7 with a BITMAP index, a composite index on (tag, cat)),
+   1% deleted:
+   - three filters (`cat < 10`, `tag = t3`, both) through the full scan
+     at rerank 512 (block-max kernel) and the probe regime at nprobe 64
+     (probe dots): the scalar-index mask byte-equal to the column scan's,
+     no returned id deleted or failing its filter, `brute_force` equal to
+     an exact filtered f32 oracle on the card (ties aside); recall@10 of
+     each path against that oracle, and each search's ms;
+   - dump to a temporary directory, `Engine.open` (cuda by default) and
+     `build_index` (absorb only): doc_count, `get` on 100 keys, a `query`
+     page and the ids of the bench, gated, probe and six filtered
+     requests equal before and after; dump, open (split by part) and
+     absorb seconds, MB written, the first search after opening;
+   - eight threads submit one 128-query request each at the same moment
+     through the batch scheduler: results bit-identical to the same
+     requests served one at a time through `_search_direct`; wall ms and
+     block-max launches both ways, the scheduler's stats;
+   - `warmup([64, 1024])`, `apply_config({"micro_batch": False})`,
+     `close()`: a search still serves, directly, and no scheduler thread
+     is left.
+5. The rest of the index family (`phase_family`), each engine freed
    before the next, each path's launches set to 0 just before it:
    IVFRABITQ (three-stage at rerank 256 and r0 1024 / r1 256, which must
    launch no block-max kernel and reach the int8-only chain's recall
@@ -62,6 +85,7 @@ line. Any failed check raises, and the script exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -1029,6 +1053,391 @@ def phase_family(dev, base, queries, truth, graph_build) -> dict:
     return out
 
 
+# the engine phase's scalar filters (cat < 10 ~10%, tag = t3
+# ~12.5%, both ~1.25% through the (tag, cat) composite)
+ENGINE_FILTERS = {
+    "cat_lt_10": {"operator": "AND", "conditions": [
+        {"field": "cat", "operator": "<", "value": 10}]},
+    "tag_t3": {"operator": "AND", "conditions": [
+        {"field": "tag", "operator": "=", "value": "t3"}]},
+    "tag_t3_and_cat_lt_10": {"operator": "AND", "conditions": [
+        {"field": "tag", "operator": "=", "value": "t3"},
+        {"field": "cat", "operator": "<", "value": 10}]},
+}
+ENGINE_REGIMES = {"full": GATED_PARAMS, "probe": dict(PROBE_PARAMS,
+                                                      **GATED_PARAMS)}
+
+
+def engine_docs(base, seed=10):
+    """The main path's rows with two scalar fields from a seeded
+    generator: `cat` uniform in [0, 100), `tag` one of t0..t7."""
+    rng = np.random.default_rng(seed)
+    cats = rng.integers(0, 100, len(base)).astype(np.int32)
+    tags = rng.integers(0, 8, len(base))
+    return cats, tags
+
+
+def engine_request(queries, params, **kw):
+    from vearch_tpu_torch.engine.engine import SearchRequest
+
+    kw.setdefault("raw_results", True)
+    return SearchRequest(vectors={"emb": queries}, k=10, include_fields=[],
+                         index_params=params, **kw)
+
+
+def filtered_oracle(dev, store, queries, valid, k=10):
+    """Exact filtered top-k on the card: f32 scores of the bf16-rounded
+    queries against the rows as the store holds them (bf16), masked,
+    128 queries at a time. Returns ([B, k] L2 distances, [B, k] row
+    ids)."""
+    import torch
+
+    from vearch_tpu_torch.engine.types import MetricType
+    from vearch_tpu_torch.ops.distance import similarity_scores
+
+    base_d, base_sq, n = store.device_buffer()
+    q = torch.from_numpy(queries).to(dev).to(base_d.dtype)
+    mask = torch.from_numpy(valid).to(dev)
+    dist, ids = [], []
+    for lo in range(0, q.shape[0], 128):
+        s = similarity_scores(q[lo:lo + 128], base_d[:n], MetricType.L2,
+                              base_sq[:n])
+        s = torch.where(mask[None, :], s, torch.full_like(s, -np.inf))
+        top = torch.topk(s, k, dim=1)
+        dist.append(-top.values)
+        ids.append(top.indices)
+    return torch.cat(dist).cpu().numpy(), torch.cat(ids).cpu().numpy()
+
+
+def check_against_oracle(res, dist, ids, what) -> int:
+    """brute_force ids equal to the oracle's, position by position,
+    except where the two scores tie (SCORE_TOL). Returns the tie swaps."""
+    swaps = 0
+    scores = np.asarray(res.scores).reshape(len(res.keys), -1)
+    for row, keys in enumerate(res.keys):
+        got = [int(k[1:]) for k in keys]
+        check(len(got) == ids.shape[1], f"{what}: short row {row}")
+        for j, g in enumerate(got):
+            if g != ids[row, j]:
+                swaps += 1
+                check(np.isclose(scores[row, j], dist[row, j],
+                                 rtol=SCORE_TOL[0], atol=SCORE_TOL[1]),
+                      f"{what}: row {row} slot {j}: {g} vs {ids[row, j]} "
+                      f"at {scores[row, j]} vs {dist[row, j]}")
+    return swaps
+
+
+def timed_search(eng, req, iters=3):
+    """(result, mean wall ms of `iters` synced searches after one)."""
+    import torch
+
+    res = eng.search(req)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(iters):
+        eng.search(req)
+    torch.cuda.synchronize()
+    return res, (time.monotonic() - t0) / iters * 1e3
+
+
+def engine_filtered(dev, eng, queries, alive) -> tuple[dict, dict]:
+    """Each filter through the full scan (rerank 512) and the probe
+    regime (nprobe 64): the index mask byte-equal to the column scan's,
+    every returned id alive and passing, brute_force equal to the exact
+    filtered oracle; recall@10 and ms of each indexed path."""
+    from vearch_tpu_torch.scalar.filter import evaluate_filter
+
+    n = eng.table.doc_count
+    out, paths = {}, {}
+    for fname, flt in ENGINE_FILTERS.items():
+        t0 = time.monotonic()
+        mask = eng._filtered_mask(flt, n)
+        mask_ms = (time.monotonic() - t0) * 1e3
+        mgr, eng._scalar_manager = eng._scalar_manager, None
+        try:
+            scan = alive & evaluate_filter(flt, eng, n)
+        finally:
+            eng._scalar_manager = mgr
+        check(mask.tobytes() == scan.tobytes(),
+              f"{fname}: scalar-index mask differs from the column scan")
+        dist, ids = filtered_oracle(dev, eng.vector_stores["emb"], queries,
+                                    mask)
+        truth = ids
+        entry = {"matches": int(mask.sum()), "mask_ms": mask_ms}
+        for regime, params in ENGINE_REGIMES.items():
+            reset_launches()
+            res, ms = timed_search(eng, engine_request(queries, params,
+                                                       filters=flt))
+            launches = read_launches()
+            got = np.asarray([int(k[1:]) for row in res.keys for k in row],
+                             dtype=np.int64)
+            check(all(len(row) == 10 for row in res.keys),
+                  f"{fname} {regime}: short rows")
+            check(bool(mask[got].all()),
+                  f"{fname} {regime}: a returned id is deleted or fails "
+                  "the filter")
+            entry[regime] = {"params": params, "search_ms": ms,
+                             "recall_at_10": recall_at_10(res, truth),
+                             "launches": launches}
+            paths[f"filtered_{fname}_{regime}"] = entry[regime]
+        kernel = {"full": "int8_blockmax_scan", "probe": "ivf_probe_dots"}
+        for regime, name in kernel.items():
+            check(entry[regime]["launches"][name] > 0,
+                  f"{fname} {regime}: {name} never launched")
+        res, ms = timed_search(eng, engine_request(
+            queries, {}, filters=flt, brute_force=True), iters=1)
+        entry["brute_force"] = {"search_ms": ms, "tie_swaps":
+                                check_against_oracle(res, dist, ids, fname)}
+        out[fname] = entry
+        print(f"engine_filter {fname} " + json.dumps(entry), flush=True)
+    return out, paths
+
+
+def engine_snapshot(eng, queries, keys) -> dict:
+    """What must come back equal after dump/open: doc_count, `get` on
+    `keys`, a `query` page, and the ids of the bench, gated, probe and
+    filtered requests."""
+    snap = {"doc_count": eng.doc_count, "get": eng.get(keys),
+            "query": eng.query(ENGINE_FILTERS["tag_t3"], limit=50,
+                               offset=100)}
+    reqs = {"bench": BENCH_PARAMS, "gated": GATED_PARAMS,
+            "probe": dict(PROBE_PARAMS, **BENCH_PARAMS)}
+    for name, params in reqs.items():
+        snap[name] = eng.search(engine_request(queries, params)).keys
+    for fname, flt in ENGINE_FILTERS.items():
+        for regime, params in ENGINE_REGIMES.items():
+            snap[f"{fname}_{regime}"] = eng.search(engine_request(
+                queries, params, filters=flt)).keys
+    return snap
+
+
+@contextlib.contextmanager
+def timed_methods(targets: dict):
+    """Seconds spent in each {name: (class, method)} while the block runs
+    (the card synchronised at each exit); the methods are restored
+    after."""
+    import torch
+
+    spent = {name: 0.0 for name in targets}
+    own = {name: cls.__dict__.get(attr)
+           for name, (cls, attr) in targets.items()}
+    for name, (cls, attr) in targets.items():
+        def hook(*a, _fn=getattr(cls, attr), _name=name, **kw):
+            t0 = time.monotonic()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                spent[_name] += time.monotonic() - t0
+
+        setattr(cls, attr, hook)
+    try:
+        yield spent
+    finally:
+        for name, (cls, attr) in targets.items():
+            if own[name] is None:
+                delattr(cls, attr)
+            else:
+                setattr(cls, attr, own[name])
+
+
+def engine_reopen(eng, queries, keys) -> tuple:
+    """dump to local disk, Engine.open (cuda by default), build_index
+    (absorb only); everything in `engine_snapshot` equal before and
+    after. Returns (numbers, the reopened engine, its launches)."""
+    import tempfile
+
+    import torch
+
+    from vearch_tpu_torch.engine.engine import Engine
+    from vearch_tpu_torch.engine.raw_vector import RawVectorStore
+    from vearch_tpu_torch.index.ivf import IVFPQIndex
+    from vearch_tpu_torch.scalar.manager import ScalarIndexManager
+
+    before = engine_snapshot(eng, queries, keys)
+    tmp = tempfile.mkdtemp(prefix="vearch_engine_dump_")
+    try:
+        t0 = time.monotonic()
+        eng.dump(tmp)
+        out = {"dump_s": time.monotonic() - t0}
+        out["mb_written"] = sum(
+            os.path.getsize(os.path.join(dp, f))
+            for dp, _d, files in os.walk(tmp) for f in files) / 2 ** 20
+        eng.close()
+        del eng
+        release_device_memory()
+        t0 = time.monotonic()
+        # the open's parts: segments read (table and rows, the rows
+        # alone), the index re-absorb, the scalar indexes rebuilt
+        with timed_methods({
+                "segments_s": (Engine, "_load_segmented"),
+                "rows_s": (RawVectorStore, "load_parts"),
+                "index_load_state_s": (IVFPQIndex, "load_state"),
+                "scalar_rebuild_s": (ScalarIndexManager,
+                                     "rebuild_from_table")}) as split:
+            eng2 = Engine.open(tmp)
+        out["open_s"] = time.monotonic() - t0
+        out["open_split"] = split
+        check(eng2.device.type == "cuda", "Engine.open did not default "
+              "to cuda")
+        t0 = time.monotonic()
+        eng2.build_index()
+        torch.cuda.synchronize()
+        out["absorb_s"] = time.monotonic() - t0
+        reset_launches()
+        t0 = time.monotonic()
+        eng2.search(engine_request(queries, BENCH_PARAMS))
+        torch.cuda.synchronize()
+        out["first_search_ms"] = (time.monotonic() - t0) * 1e3
+        after = engine_snapshot(eng2, queries, keys)
+        out["launches"] = read_launches()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name in before:
+        check(before[name] == after[name],
+              f"{name} differs after dump/open")
+    out["equal_after_reopen"] = sorted(before)
+    for name in ("int8_blockmax_scan", "ivf_probe_dots"):
+        check(out["launches"][name] > 0,
+              f"the reopened engine never launched {name}")
+    return out, eng2
+
+
+def engine_scheduled(eng, queries, threads=8, rows=128) -> dict:
+    """`threads` callers each submit one `rows`-query request at the same
+    moment through Engine.search (the scheduler); the results must be
+    bit-identical to the same requests served one at a time through
+    _search_direct."""
+    import threading
+
+    import torch
+
+    reqs = [engine_request(queries[i * rows:(i + 1) * rows], BENCH_PARAMS,
+                           raw_results=False) for i in range(threads)]
+    eng.search(reqs[0])  # the scheduler's thread exists before the clock
+    torch.cuda.synchronize()
+    out: list = [None] * threads
+    errors: list = []
+    gate = threading.Barrier(threads + 1)
+
+    def caller(i):
+        try:
+            gate.wait()
+            out[i] = eng.search(reqs[i])
+        except Exception as e:  # noqa: BLE001 (reported below)
+            errors.append(e)
+
+    workers = [threading.Thread(target=caller, args=(i,))
+               for i in range(threads)]
+    for t in workers:
+        t.start()
+    reset_launches()
+    mb = eng._microbatcher
+    before = mb.stats()
+    gate.wait()
+    t0 = time.monotonic()
+    for t in workers:
+        t.join()
+    torch.cuda.synchronize()
+    scheduled_ms = (time.monotonic() - t0) * 1e3
+    launches = read_launches()
+    check(not errors, f"scheduled searches failed: {errors}")
+    after = mb.stats()
+    reset_launches()
+    t0 = time.monotonic()
+    direct = [eng._search_direct(r) for r in reqs]
+    torch.cuda.synchronize()
+    direct_ms = (time.monotonic() - t0) * 1e3
+    direct_launches = read_launches()
+
+    def items(res):
+        return [[(it.key, it.score) for it in r.items] for r in res]
+
+    check(all(items(o) == items(d) for o, d in zip(out, direct)),
+          "scheduled results are not bit-identical to direct ones")
+    check(launches["int8_blockmax_scan"] > 0,
+          "the scheduled path never launched the block-max kernel")
+    res = {"threads": threads, "rows_each": rows,
+           "scheduled_wall_ms": scheduled_ms, "direct_wall_ms": direct_ms,
+           "stats": {k: after[k] - before.get(k, 0)
+                     if isinstance(after[k], int) else after[k]
+                     for k in after},
+           "launches": launches, "direct_launches": direct_launches,
+           "bit_identical": True}
+    print("engine_scheduled " + json.dumps(res), flush=True)
+    return res
+
+
+def phase_engine(dev, base, queries) -> tuple[dict, dict]:
+    """The rest of the engine at the main path's size: two scalar fields
+    with INVERTED, BITMAP and composite indexes, 1% deleted; filtered
+    searches through both kernels, dump/open, the batch scheduler, then
+    warmup, apply_config and close. Returns (numbers, per-path
+    launches)."""
+    import threading
+
+    import torch
+
+    from vearch_tpu_torch.engine.engine import Engine
+    from vearch_tpu_torch.engine.types import (
+        DataType, FieldSchema, IndexParams, MetricType, ScalarIndexType,
+        TableSchema,
+    )
+
+    (n, d), batch = base.shape, 1024
+    params = {"ncentroids": 2048, "nsubvector": 32, "train_iters": 8,
+              "training_threshold": 2 * n, "store_dtype": "bfloat16"}
+    schema = TableSchema("engine", [
+        FieldSchema("emb", DataType.VECTOR, dimension=d,
+                    index=IndexParams("IVFPQ", MetricType.L2, params)),
+        FieldSchema("cat", DataType.INT,
+                    scalar_index=ScalarIndexType.INVERTED),
+        FieldSchema("tag", DataType.STRING,
+                    scalar_index=ScalarIndexType.BITMAP),
+    ], composite_indexes=[["tag", "cat"]])
+    eng = Engine(schema)
+    cats, tags = engine_docs(base)
+    t0 = time.monotonic()
+    for i in range(0, n, 100_000):
+        eng.upsert([{"_id": f"d{j}", "emb": base[j], "cat": int(cats[j]),
+                     "tag": f"t{tags[j]}"}
+                    for j in range(i, min(i + 100_000, n))])
+    out = {"ingest_s": time.monotonic() - t0}
+    t0 = time.monotonic()
+    eng.build_index()
+    torch.cuda.synchronize()
+    out["build_s"] = time.monotonic() - t0
+    rng = np.random.default_rng(11)
+    gone = rng.choice(n, n // 100, replace=False)
+    check(eng.delete([f"d{j}" for j in gone]) == len(gone), "delete count")
+    q = queries[:batch]
+    alive = eng.bitmap.valid_mask(n)
+    out["filtered"], paths = engine_filtered(dev, eng, q, alive)
+    keys = [f"d{j}" for j in gone[:50]] + [
+        f"d{j}" for j in rng.choice(n, 50, replace=False)]
+    out["reopen"], eng = engine_reopen(eng, q, keys)
+    paths["reopened"] = out["reopen"]
+    print("engine_reopen " + json.dumps(out["reopen"]), flush=True)
+    out["scheduled"] = engine_scheduled(eng, q)
+    paths["scheduled"] = out["scheduled"]
+    t0 = time.monotonic()
+    warmed = eng.warmup([64, 1024])
+    torch.cuda.synchronize()
+    out["warmup"] = {"batches": warmed, "s": time.monotonic() - t0}
+    eng.apply_config({"micro_batch": False})
+    eng.close()
+    res = eng.search(engine_request(q[:64], BENCH_PARAMS, raw_results=False))
+    check(len(res) == 64 and eng._microbatcher is None,
+          "a search after close() did not serve directly")
+    left = [t.name for t in threading.enumerate()
+            if t.name == "vearch-batch-scheduler"]
+    check(not left, f"scheduler threads left after close(): {left}")
+    out["closed"] = {"direct_after_close": True, "scheduler_threads": 0}
+    del eng, res
+    release_device_memory()
+    return out, paths
+
+
 def profile_search(eng, req, ranges=()) -> dict:
     """Device time by kernel over one search (torch.profiler), the
     device's busy share of the search's wall time, and the device time
@@ -1187,6 +1596,10 @@ def main() -> int:
     del index, a8, sc, vs, valid, q, probes
     release_device_memory()
     t0 = time.monotonic()
+    engine, engine_paths = phase_engine(dev, base, queries)
+    print("engine " + json.dumps(engine), flush=True)
+    print(f"phase engine: {time.monotonic() - t0:.1f}s", flush=True)
+    t0 = time.monotonic()
     try:
         family = phase_family(dev, base, queries, truth, graph_build)
     finally:
@@ -1202,7 +1615,8 @@ def main() -> int:
          "replaces": "vearch_tpu/ops/pallas_kernels.py:201",
          "launches": main_res["launches"]["int8_blockmax_scan"],
          "launches_by_path": launches_by_path(
-             main_res, family, "int8_blockmax_scan"),
+             main_res, dict(family, engine=engine_paths),
+             "int8_blockmax_scan"),
          "max_abs_err": res["bmax_max_abs_err"], "ms": res["kernel_ms"],
          "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
          "bound_by": res["bound_by"], "library_ms": res["library_ms"]},
@@ -1215,7 +1629,8 @@ def main() -> int:
          "replaces": "vearch_tpu/ops/pallas_kernels.py:54",
          "launches": main_res["probe"]["launches"]["ivf_probe_dots"],
          "launches_by_path": launches_by_path(
-             main_res, family, "ivf_probe_dots"),
+             main_res, dict(family, engine=engine_paths),
+             "ivf_probe_dots"),
          "max_abs_err": pres["max_abs_err"], "ms": pres["kernel_ms"],
          "plain_ms": pres["plain_ms"], "bound_ms": pres["bound_ms"],
          "bound_by": pres["bound_by"], "library_ms": pres["library_ms"]},

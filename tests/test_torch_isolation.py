@@ -63,7 +63,10 @@ def test_port_imports_no_jax_and_needs_explicit_cpu():
                 "vearch_tpu_torch.index.ivf", "vearch_tpu_torch.index.binary",
                 "vearch_tpu_torch.index.hnsw", "vearch_tpu_torch.index.scann",
                 "vearch_tpu_torch.native.hnsw_graph",
-                "vearch_tpu_torch.convert"):
+                "vearch_tpu_torch.convert",
+                "vearch_tpu_torch.engine.batching",
+                "vearch_tpu_torch.scalar.manager",
+                "vearch_tpu_torch.scalar.indexes"):
         assert mod in got["modules"]
     assert got["refused"] is True
     assert got["from_ref"] == []

@@ -13,6 +13,8 @@ hands the search path a validity view. Persistence is a raw .npy file.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 
@@ -36,6 +38,16 @@ class BitmapManager:
             self._deleted_count += 1
             self.version += 1
 
+    def unset(self, docid: int) -> None:
+        self._ensure(docid)
+        if self._bits[docid]:
+            self._bits[docid] = False
+            self._deleted_count -= 1
+            self.version += 1
+
+    def is_deleted(self, docid: int) -> bool:
+        return docid < self._bits.shape[0] and bool(self._bits[docid])
+
     @property
     def deleted_count(self) -> int:
         return self._deleted_count
@@ -44,3 +56,17 @@ class BitmapManager:
         """[n] bool, True = alive; n is the current docid high-water mark."""
         self._ensure(max(n - 1, 0))
         return ~self._bits[:n]
+
+    def snapshot(self, n: int) -> np.ndarray:
+        """Point-in-time copy of the first n bits (caller holds the
+        engine write lock; the copy may be persisted lock-free)."""
+        return self._bits[: max(n, 1)].copy()
+
+    def dump(self, path: str) -> None:
+        np.save(path, self._bits)
+
+    def load(self, path: str) -> None:
+        if os.path.exists(path):
+            self._bits = np.load(path)
+            self._deleted_count = int(self._bits.sum())
+            self.version += 1

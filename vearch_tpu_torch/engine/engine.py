@@ -1,22 +1,36 @@
 """Per-partition engine, the port of vearch_tpu/engine/engine.py: table +
-raw vector stores + indexes + deletion bitmap.
+raw vector stores + indexes + deletion bitmap + scalar indexes.
 
 Write model (as in the reference): everything is append-only. An update
 soft-deletes the old docid and appends a new row, so device buffers never
 mutate rows; deletions are masked inside the scan.
 
-This slice keeps the reference's direct search path (`_search_direct`):
-rows padded to the declared row buckets, candidate depth raised to the
-fetch-k tiers, the alive mask cached on the device per bitmap version,
-and per-request filter masks. Not ported yet: the BatchScheduler
-(`search` goes straight to `_search_direct`), dump/open, scalar indexes,
-accounting and observability hooks (ROADMAP queue 1 item 2).
+Search: `search` sends every unfiltered, non-brute-force, non-columnar
+request through the continuous-batching scheduler (engine/batching.py),
+which co-batches compatible requests into padded row buckets; the rest go
+to `_search_direct`. Rows are padded to the declared row buckets and the
+candidate depth raised to the fetch-k tiers; the alive mask and each
+filter's alive-and-filter mask are cached on the device per data version.
+Filters plan through the scalar-index manager (scalar/manager.py) where a
+field or composite is indexed. `SearchRequest.trace` collects per-phase
+wall times and `ctx` is checked at the phase boundaries.
+
+Persistence is the reference's segmented format 2 (`dump`, `open`): a
+dump that either package wrote opens in the other, index state passing
+through `convert.index_state_from_reference`.
+
+Not ported yet: disk stores (ROADMAP queue 1 item 7); the accounting,
+flight-recorder, build-job and quality hooks and the per-request dispatch
+capture (item 8); `mesh_serving: on` (item 10).
 """
 
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import threading
+import time
 import uuid
 from collections import OrderedDict
 from dataclasses import dataclass, field
@@ -29,24 +43,38 @@ from vearch_tpu_torch.device import resolve_device
 from vearch_tpu_torch.engine.bitmap import BitmapManager
 from vearch_tpu_torch.engine.raw_vector import RawVectorStore
 from vearch_tpu_torch.engine.table import Table
-from vearch_tpu_torch.engine.types import (
+from vearch_tpu_torch.engine.types import (  # noqa: F401 (re-exported)
+    DataType,
     IndexParams,
     IndexStatus,
     MetricType,
+    RequestContext,
+    RequestKilled,
+    ScalarIndexType,
     SearchResult,
     SearchResultItem,
     TableSchema,
+    _FieldBuild,
 )
 from vearch_tpu_torch.index.base import VectorIndex
 from vearch_tpu_torch.index.registry import create_index
 from vearch_tpu_torch.ops import perf_model
 from vearch_tpu_torch.ops.distance import score_to_metric
 
+# wall-clock epoch of time.monotonic() zero: phase spans carry
+# epoch microseconds while every duration is measured monotonically
+MONO_EPOCH_OFFSET = time.time() - time.monotonic()
+
+
+def mono_us(t_monotonic: float) -> int:
+    """Monotonic seconds -> wall-anchored epoch microseconds (the
+    reference's span `start_us` convention)."""
+    return int((MONO_EPOCH_OFFSET + t_monotonic) * 1e6)
+
 
 @dataclass
 class SearchRequest:
-    """One batched vector search (the reference's SearchRequest without
-    its tracing and cancellation fields).
+    """One batched vector search (the reference's SearchRequest).
 
     vectors: field name -> [B, d] query matrix; several fields merge with
     `field_weights`. filters: a scalar-filter AST (scalar/filter.py) or
@@ -56,26 +84,30 @@ class SearchRequest:
     k: int = 10
     filters: Any = None
     include_fields: list[str] | None = None
+    brute_force: bool = False  # exact flat scan even when indexed
     field_weights: dict[str, float] = field(default_factory=dict)
     index_params: dict[str, Any] = field(default_factory=dict)  # rerank etc.
     # {field: (min_score, max_score)} on each field's metric-oriented score
     score_bounds: dict[str, tuple] | None = None
     # normalized scalar-field sort specs (engine/sort.py parse_sort)
     sort: list[dict] | None = None
-    # fields-free columnar result shape (ColumnarSearchResults)
+    # fields-free columnar result shape (ColumnarSearchResults); skips
+    # the scheduler
     raw_results: bool = False
+    # when not None, the engine records per-phase wall times into it
+    # ({phase}_ms keys and `_phase_spans` [name, start_us, dur_us])
+    trace: dict[str, float] | None = None
+    # cooperative cancellation, checked at phase boundaries: a killed
+    # request aborts before its next device dispatch, never mid-kernel
+    ctx: RequestContext | None = None
 
 
 class Engine:
-    def __init__(self, schema: TableSchema, device=None):
+    def __init__(self, schema: TableSchema, device=None,
+                 data_dir: str | None = None):
         self.device = resolve_device(device)
-        if schema.composite_indexes or any(
-            f.scalar_index.value != "NONE" for f in schema.scalar_fields()
-        ):
-            raise NotImplementedError(
-                "scalar indexes are not ported yet (ROADMAP queue 1 item 2); "
-                "filters evaluate against the table's columns")
         self.schema = schema
+        self.data_dir = data_dir
         self.table = Table(schema)
         self.bitmap = BitmapManager()
         self.vector_stores: dict[str, RawVectorStore] = {}
@@ -83,15 +115,51 @@ class Engine:
         self.status = IndexStatus.UNINDEXED
         self.last_build_error: BaseException | None = None
         self._write_lock = threading.Lock()
-        # monotone data version: bumped by every mutation that can change
-        # search results; keys the filter-mask cache
+        # monotone data version: bumped under _write_lock by every
+        # mutation that can change search results (upsert, delete, schema
+        # and scalar-index changes); keys the filter-mask caches
         self.data_version = 0
+        # (filter json, data_version, n) -> host alive-and-filter mask,
+        # and the same key -> that mask on the device, so a repeated
+        # filtered search neither re-evaluates nor re-uploads it
         self._filter_cache: OrderedDict[tuple, np.ndarray] = OrderedDict()
+        self._device_filter_cache: OrderedDict[tuple, torch.Tensor] = \
+            OrderedDict()
         self._filter_cache_lock = threading.Lock()
         self._filter_cache_max = 128
-        self._mask_cache = None
-        self._mask_cache_key = None
+        self._device_filter_cache_max = 16
+        # (bitmap version, n) and the alive mask on the device, replaced
+        # as one tuple so a concurrent reader never pairs a key with
+        # another key's mask
+        self._mask_cache: tuple | None = None
         self._build_thread: threading.Thread | None = None
+        self._refresh_thread: threading.Thread | None = None
+        self._closed: threading.Event | None = None
+        # field -> in-flight scalar index build marker: lets synchronous
+        # callers join an identical in-flight build, and gates publish on
+        # the marker still being current (a remove or a newer build
+        # cancels it)
+        self._field_builds: dict[str, _FieldBuild] = {}
+        # continuous batching (engine/batching.py): started lazily on the
+        # first qualifying search, so an idle engine spawns no thread
+        self.micro_batch = True
+        self.micro_batch_max_rows = 1024
+        # age bound on a partially filled shape bucket (ms); 0 dispatches
+        # the moment the dispatcher is free
+        self.batch_delay_ms = 0.0
+        self._microbatcher = None
+        # padded shape buckets (ops/perf_model.py): every dispatch is
+        # raised to the declared row and fetch-k grid, so mixed-k traffic
+        # co-batches; off reverts to free-form shapes
+        self.shape_buckets = True
+        self._scalar_manager = None
+        if schema.composite_indexes or any(
+            f.scalar_index is not ScalarIndexType.NONE
+            for f in schema.scalar_fields()
+        ):
+            from vearch_tpu_torch.scalar.manager import ScalarIndexManager
+
+            self._scalar_manager = ScalarIndexManager(schema)
         for f in schema.vector_fields():
             params = f.index or IndexParams()
             store_type = str(params.get("store_type", "MemoryOnly"))
@@ -162,11 +230,14 @@ class Engine:
                     out[i] = np.asarray(store.get(old), dtype=np.float32)
                     latest[key] = i
                 mats[f.name] = out
+            merged_docs = []
             for doc in docs:
                 key = str(doc["_id"]) if "_id" in doc else uuid.uuid4().hex
                 fields = {k: v for k, v in doc.items() if k != "_id"}
                 prev_id = self.table.docid_of(key)
                 if prev_id is not None:
+                    # only fields the previous doc actually set carry
+                    # forward (fixed columns materialize 0-defaults)
                     prev_set = self.table.set_fields_of(prev_id)
                     for name, val in self.table.get_fields(
                             prev_id, list(prev_set)).items():
@@ -175,8 +246,12 @@ class Engine:
                 if old is not None:
                     self.bitmap.set_deleted(old)
                 keys.append(key)
+                merged_docs.append(fields)
             for f in vf:
                 self.vector_stores[f.name].add(mats[f.name])
+            if self._scalar_manager is not None:
+                self._scalar_manager.add_docs(
+                    merged_docs, self.table.doc_count - len(docs))
             self.data_version += 1
         self._maybe_start_build()
         return keys
@@ -192,6 +267,158 @@ class Engine:
             if n:
                 self.data_version += 1
         return n
+
+    # -- reads ---------------------------------------------------------------
+
+    def _vector_payload(self, doc: dict, docid: int, vector_value: bool,
+                        fields: list[str] | None) -> None:
+        """Vector payloads ride only when `vector_value` is set or a vector
+        field is named in `fields`."""
+        for name, store in self.vector_stores.items():
+            if vector_value or (fields is not None and name in fields):
+                doc[name] = store.get(docid).tolist()
+
+    def get(
+        self,
+        keys: list[str],
+        fields: list[str] | None = None,
+        vector_value: bool = False,
+    ) -> list[dict]:
+        """Fetch alive docs by key (absent and deleted keys are skipped)."""
+        out = []
+        for key in keys:
+            docid = self.table.docid_of(key)
+            if docid is None or self.bitmap.is_deleted(docid):
+                continue
+            doc = {"_id": key, **self.table.get_fields(docid, fields)}
+            self._vector_payload(doc, docid, vector_value, fields)
+            out.append(doc)
+        return out
+
+    @property
+    def doc_count(self) -> int:
+        """Alive docs."""
+        return self.table.doc_count - self.bitmap.deleted_count
+
+    def memory_usage_bytes(self) -> int:
+        """Host memory of the durable structures (raw vectors, quantized
+        mirrors and codes), the reference's formula: it drives the
+        resource-limit write guard."""
+        total = 0
+        for store in self.vector_stores.values():
+            total += store.host_view().nbytes  # used rows, not capacity
+        for index in self.indexes.values():
+            mirror = getattr(index, "_mirror", None)
+            if mirror is not None:
+                total += mirror.count * (mirror.dimension + 8)
+            codes = getattr(index, "_codes", None)
+            if codes is not None:
+                total += codes.nbytes
+        return total
+
+    def query(
+        self,
+        filters: Any = None,
+        limit: int = 50,
+        offset: int = 0,
+        include_fields: list[str] | None = None,
+        vector_value: bool = False,
+        order_by_key: bool = True,
+        sort: list[dict] | None = None,
+    ) -> list[dict]:
+        """Scalar-only query: filter docs without a vector search.
+
+        Matches come in _id order by default (so a merge-then-slice over
+        partitions pages correctly); order_by_key=False skips that sort.
+        With `sort` (normalized specs, engine/sort.py) matches order by
+        the sort keys, _id breaking ties, and each doc carries its
+        "_sort" values."""
+        from vearch_tpu_torch.scalar.filter import evaluate_filter
+
+        n = self.table.doc_count
+        valid = self.bitmap.valid_mask(n)
+        if filters is not None:
+            valid = valid & evaluate_filter(filters, self, n)
+        matched = np.nonzero(valid)[0]
+        sort_rows: list[list] | None = None
+        if sort and matched.size:
+            matched, sort_rows = self._sorted_matches(matched, sort)
+        elif order_by_key and matched.size:
+            keys = np.array(
+                [self.table.key_of(int(i)) for i in matched], dtype=object)
+            matched = matched[np.argsort(keys, kind="stable")]
+        hits = matched[offset: offset + limit]
+        out = []
+        for pos, docid in enumerate(hits):
+            docid = int(docid)
+            doc = {"_id": self.table.key_of(docid)}
+            doc.update(self.table.get_fields(docid, include_fields))
+            self._vector_payload(doc, docid, vector_value, include_fields)
+            if sort_rows is not None:
+                doc["_sort"] = sort_rows[offset + pos]
+            out.append(doc)
+        return out
+
+    def _sorted_matches(
+        self, matched: np.ndarray, specs: list[dict]
+    ) -> tuple[np.ndarray, list[list]]:
+        """Order matched docids by the sort specs (stable, _id tie-break).
+        Returns (ordered docids, their sort values in the same order).
+        Fixed numeric columns ride one np.lexsort; string or missing-
+        capable fields fall back to a comparison sort."""
+        from vearch_tpu_torch.engine.sort import (
+            ID_FIELD, SCORE_FIELD, row_sort_key,
+        )
+
+        ids = matched.tolist()
+        keys = [self.table.key_of(int(i)) for i in ids]
+        value_cols: list[list] = []
+        all_fixed = True
+        for s in specs:
+            f = s["field"]
+            if f == ID_FIELD:
+                value_cols.append(keys)
+                all_fixed = False
+                continue
+            if f == SCORE_FIELD:
+                # no vector score in a scalar query: None values sort last
+                value_cols.append([None] * len(ids))
+                all_fixed = False
+                continue
+            try:
+                col = self.table.column(f)
+                value_cols.append(col[matched].tolist())
+            except KeyError:
+                all_fixed = False
+                try:
+                    scol = self.table.string_column(f)
+                    value_cols.append([scol[i] for i in ids])
+                except KeyError:
+                    value_cols.append([None] * len(ids))
+        if all_fixed and value_cols:
+            # least-significant key first: the _id tie-break, then the
+            # spec columns in reverse (keys as unicode: np.lexsort rejects
+            # object arrays)
+            lex_keys = [np.asarray(keys)]
+            for s, col in zip(reversed(specs), reversed(value_cols)):
+                arr = np.asarray(col)
+                if arr.dtype == bool or arr.dtype.kind == "u":
+                    arr = arr.astype(np.int64)  # negate-safe
+                lex_keys.append(-arr if s["desc"] else arr)
+            order = np.lexsort(lex_keys)
+        else:
+            rows = list(range(len(ids)))
+            rows.sort(key=row_sort_key(
+                specs,
+                lambda r: [value_cols[c][r] for c in range(len(specs))],
+                tie_key=lambda r: keys[r],
+            ))
+            order = rows
+        ordered = matched[np.asarray(order, dtype=np.int64)]
+        sort_rows = [
+            [value_cols[c][r] for c in range(len(specs))] for r in order
+        ]
+        return ordered, sort_rows
 
     # -- index lifecycle -----------------------------------------------------
 
@@ -224,7 +451,10 @@ class Engine:
             t.join(timeout)
 
     def build_index(self, field_name: str | None = None) -> None:
-        """Train (where needed) and absorb all current rows."""
+        """Train (where needed) and absorb all current rows, then warm the
+        configured batch sizes (`warmup_batches`; none by default). After
+        `open` the indexes are trained and absorbed, so this only absorbs
+        rows that arrived since."""
         self.status = IndexStatus.TRAINING
         try:
             for name, index in self.indexes.items():
@@ -240,27 +470,307 @@ class Engine:
             self.status = IndexStatus.UNINDEXED
             raise
         self.status = IndexStatus.INDEXED
+        self.warmup(field_name=field_name)
+
+    def rebuild_index(self) -> None:
+        """Retrain from scratch: fresh indexes over the same stores."""
+        for name, index in self.indexes.items():
+            self.indexes[name] = create_index(index.params,
+                                              self.vector_stores[name])
+        self.status = IndexStatus.UNINDEXED
+        self.build_index()
+
+    def warmup(
+        self,
+        batches: list[int] | None = None,
+        k: int = 10,
+        field_name: str | None = None,
+    ) -> dict[str, list[int]]:
+        """Real searches through each index at the given query-batch sizes
+        (default: each index's "warmup_batches" param), raised to the row
+        and fetch-k buckets serving dispatches, so the kernels are built
+        and first launched before the first request. Returns the batch
+        sizes run per field."""
+        done: dict[str, list[int]] = {}
+        for name, index in self.indexes.items():
+            if field_name is not None and name != field_name:
+                continue
+            store = self.vector_stores[name]
+            if store.count == 0:
+                continue
+            b_list = batches if batches is not None else list(
+                index.params.get("warmup_batches", []) or [])
+            if not b_list:
+                continue
+            # a live row, not zeros: cosine normalisation of an all-zero
+            # query would exercise a degenerate path
+            row = np.asarray(store.host_view()[:1], dtype=np.float32)
+            valid = self._device_alive_mask(self.table.doc_count)
+            kk = max(1, min(int(k), store.count))
+            b_set = {int(x) for x in b_list if int(x) > 0}
+            if self.shape_buckets:
+                kk = perf_model.bucket_fetch_k(kk)
+                b_set = {perf_model.bucket_rows(b) for b in b_set}
+            for b in sorted(b_set):
+                q = np.repeat(row, b, axis=0)
+                if index.trained:
+                    index.search(q, kk, valid)
+                else:
+                    from vearch_tpu_torch.index.flat import FlatIndex
+
+                    FlatIndex(IndexParams(metric_type=index.metric),
+                              store).search(q, kk, valid)
+                done.setdefault(name, []).append(b)
+        return done
+
+    def start_refresh_loop(self) -> None:
+        """Background realtime pump: absorb new rows into every trained
+        index every refresh interval, so searches do not pay the absorb
+        inline."""
+        with self._write_lock:  # ordered against close()'s _closed write
+            if self._refresh_thread is not None:
+                return
+            if self._closed is not None and self._closed.is_set():
+                return  # closed engines stay closed
+            self._closed = threading.Event()
+            closed = self._closed
+
+        def loop():
+            while not closed.wait(
+                    max(self.schema.refresh_interval_ms, 50) / 1e3):
+                for name, index in self.indexes.items():
+                    if index.trained:
+                        try:
+                            index.absorb(self.vector_stores[name].count)
+                        except Exception as e:
+                            self.last_build_error = e
+
+        self._refresh_thread = threading.Thread(
+            target=loop, daemon=True, name="engine-refresh")
+        self._refresh_thread.start()
+
+    def close(self) -> None:
+        """Stop the scheduler (its waiting callers are errored) and the
+        refresh loop; later searches serve directly."""
+        # under _write_lock, as the scheduler's lazy creation in search():
+        # a concurrent search must not start a fresh scheduler after the
+        # stop
+        with self._write_lock:
+            if self._closed is None:
+                # no refresh loop ever started; still record closedness
+                # so apply_config cannot re-enable micro-batching
+                self._closed = threading.Event()
+            self._closed.set()
+            self.micro_batch = False
+            mb, self._microbatcher = self._microbatcher, None
+        if mb is not None:
+            mb.stop()
+            mb._thread.join(timeout=60)
+        if self._refresh_thread is not None:
+            self._refresh_thread.join(timeout=60)
+
+    def apply_config(self, cfg: dict[str, Any]) -> dict[str, Any]:
+        """Runtime-mutable engine config: refresh_interval_ms,
+        training_threshold, micro_batch, micro_batch_max_rows,
+        batch_delay_ms, shape_buckets, mesh_shape / mesh_serving (fanned
+        into every vector field's index params), per-field index_params,
+        and warmup (re-run `warmup`)."""
+        if "refresh_interval_ms" in cfg:
+            self.schema.refresh_interval_ms = int(cfg["refresh_interval_ms"])
+        if "training_threshold" in cfg:
+            self.schema.training_threshold = int(cfg["training_threshold"])
+        if "micro_batch" in cfg:
+            # under _write_lock, ordered against close(): a closed engine
+            # must not re-enable batching
+            with self._write_lock:
+                if self._closed is None or not self._closed.is_set():
+                    self.micro_batch = bool(cfg["micro_batch"])
+        if "micro_batch_max_rows" in cfg:
+            self.micro_batch_max_rows = int(cfg["micro_batch_max_rows"])
+            mb = self._microbatcher
+            if mb is not None:
+                mb.max_rows = self.micro_batch_max_rows
+        if "batch_delay_ms" in cfg:
+            self.batch_delay_ms = float(cfg["batch_delay_ms"])
+            mb = self._microbatcher
+            if mb is not None:
+                mb.max_delay_ms = self.batch_delay_ms
+        if "shape_buckets" in cfg:
+            self.shape_buckets = bool(cfg["shape_buckets"])
+        for key in ("mesh_shape", "mesh_serving"):
+            # written as the reference writes them; mesh_serving "on"
+            # raises at search time (ROADMAP queue 1 item 10)
+            if key in cfg:
+                for index in self.indexes.values():
+                    index.params.params[key] = cfg[key]
+        for name, params in (cfg.get("index_params") or {}).items():
+            if name in self.indexes:
+                self.indexes[name].params.params.update(params)
+        if cfg.get("warmup"):
+            self.warmup()
+        return {
+            "refresh_interval_ms": self.schema.refresh_interval_ms,
+            "training_threshold": self.schema.training_threshold,
+        }
+
+    # -- online scalar field indexes -----------------------------------------
+
+    def add_field_index(
+        self, field: str, index_type: str = "INVERTED",
+        background: bool = True,
+    ) -> None:
+        """Build a scalar index on a live field. The bulk build reads the
+        append-only column without the write lock (searches keep
+        scanning), then catches up and publishes atomically under the
+        lock; from that moment filters use the index."""
+        f = self.schema.field(field)
+        if f.data_type is DataType.VECTOR:
+            raise ValueError(f"{field} is a vector field")
+        itype = ScalarIndexType(index_type.upper())
+        if itype is ScalarIndexType.NONE:
+            return self.remove_field_index(field)
+        with self._write_lock:
+            cur = self._field_builds.get(field)
+            if cur is not None and cur.value == itype.value:
+                if background:
+                    return  # identical background build already in flight
+                # synchronous: the index must be live on return
+                pending = cur
+            else:
+                pending = None
+                marker = _FieldBuild(itype.value)
+                self._field_builds[field] = marker
+        if pending is not None:
+            pending.done.wait()
+            if pending.error is not None:
+                raise pending.error
+            return
+
+        def build() -> None:
+            from vearch_tpu_torch.scalar.indexes import (
+                BitmapScalarIndex, InvertedScalarIndex,
+            )
+            from vearch_tpu_torch.scalar.manager import _NUMERIC
+
+            if itype is ScalarIndexType.BITMAP:
+                index = BitmapScalarIndex()
+            else:
+                dtype = _NUMERIC.get(f.data_type)
+                index = InvertedScalarIndex(
+                    np.dtype(dtype) if dtype else np.dtype(object))
+
+            def rows(lo: int, hi: int):
+                try:
+                    return self.table.column(field)[lo:hi]
+                except KeyError:
+                    return self.table.string_column(field)[lo:hi]
+
+            def index_rows(lo: int, hi: int) -> None:
+                # presence-gated: fixed-column 0-defaults of never-set
+                # fields must not become filterable values
+                for docid, value in enumerate(rows(lo, hi), start=lo):
+                    if (value is not None
+                            and field in self.table.set_fields_of(docid)):
+                        index.add(value, docid)
+
+            built = 0
+            while True:  # bulk phase, lock-free
+                hi = self.table.doc_count
+                if hi <= built:
+                    break
+                index_rows(built, hi)
+                built = hi
+            with self._write_lock:
+                if self._field_builds.get(field) is not marker:
+                    return  # superseded (a remove, or a different build)
+                index_rows(built, self.table.doc_count)  # exact catch-up
+                if self._scalar_manager is None:
+                    from vearch_tpu_torch.scalar.manager import (
+                        ScalarIndexManager,
+                    )
+
+                    self._scalar_manager = ScalarIndexManager(self.schema)
+                self._scalar_manager.add_field(field, index)
+                f.scalar_index = itype  # dumps persist the new schema
+                self.data_version += 1
+
+        def run() -> None:
+            try:
+                build()
+            except BaseException as e:
+                marker.error = e
+                if not background:
+                    raise
+            finally:
+                with self._write_lock:
+                    # pop only our marker: a newer build replaced it
+                    if self._field_builds.get(field) is marker:
+                        self._field_builds.pop(field)
+                marker.done.set()
+
+        if background:
+            threading.Thread(target=run, daemon=True,
+                             name=f"vearch-field-index-{field}").start()
+        else:
+            run()
+
+    def add_schema_field(self, f) -> None:
+        """Online schema evolution: add a new scalar field (additions
+        only). Idempotent; vector fields are refused."""
+        if f.data_type is DataType.VECTOR:
+            raise ValueError("vector fields cannot be added to a live space")
+        target = f.scalar_index
+        with self._write_lock:
+            if any(x.name == f.name for x in self.schema.fields):
+                return
+            # appended with no index flag: it flips when the build
+            # publishes
+            f.scalar_index = ScalarIndexType.NONE
+            self.schema.fields.append(f)
+            self.table.add_field(f)
+            self.data_version += 1
+        if target is not ScalarIndexType.NONE:
+            self.add_field_index(f.name, target.value)
+
+    def remove_field_index(self, field: str) -> None:
+        """Drop a field's scalar index; filters fall back to the column
+        scan."""
+        f = self.schema.field(field)
+        with self._write_lock:
+            # orphaning an in-flight build's marker makes its publish
+            # refuse, so the dropped index cannot come back
+            self._field_builds.pop(field, None)
+            if self._scalar_manager is not None:
+                self._scalar_manager.remove_field(field)
+            f.scalar_index = ScalarIndexType.NONE
+            self.data_version += 1
 
     # -- search --------------------------------------------------------------
 
     def _device_alive_mask(self, n: int) -> torch.Tensor:
         key = (self.bitmap.version, n)
-        if self._mask_cache_key != key:
-            self._mask_cache = torch.from_numpy(
-                self.bitmap.valid_mask(n).copy()).to(self.device)
-            self._mask_cache_key = key
-        return self._mask_cache
+        cached = self._mask_cache
+        if cached is None or cached[0] != key:
+            cached = self._mask_cache = (key, torch.from_numpy(
+                self.bitmap.valid_mask(n).copy()).to(self.device))
+        return cached[1]
+
+    @staticmethod
+    def _filter_key(filters: Any) -> str | None:
+        try:
+            return json.dumps(filters, sort_keys=True, default=str)
+        except (TypeError, ValueError):
+            return None  # un-canonicalizable filter object: no caching
 
     def _filtered_mask(self, filters: Any, n: int) -> np.ndarray:
-        """Alive-and-filter mask for the first `n` rows, cached on
-        (filter expression, data_version, n)."""
+        """Alive-and-filter host mask for the first `n` rows, cached on
+        (filter expression, data_version, n). The version is read before
+        evaluation: a write landing meanwhile keys the mask to the old
+        version, and the next search recomputes."""
         from vearch_tpu_torch.scalar.filter import evaluate_filter
 
         version = self.data_version
-        try:
-            fkey = json.dumps(filters, sort_keys=True, default=str)
-        except (TypeError, ValueError):
-            fkey = None  # un-canonicalizable filter object: no caching
+        fkey = self._filter_key(filters)
         key = (fkey, version, n)
         if fkey is not None:
             with self._filter_cache_lock:
@@ -268,29 +778,78 @@ class Engine:
                 if mask is not None:
                     self._filter_cache.move_to_end(key)
                     return mask
-        mask = self.bitmap.valid_mask(n) & evaluate_filter(
-            filters, self.table, n)
+        mask = self.bitmap.valid_mask(n) & evaluate_filter(filters, self, n)
         if fkey is not None:
             with self._filter_cache_lock:
                 self._filter_cache[key] = mask
+                self._filter_cache.move_to_end(key)
                 while len(self._filter_cache) > self._filter_cache_max:
                     self._filter_cache.popitem(last=False)
         return mask
 
+    def _device_filtered_mask(self, filters: Any, n: int) -> torch.Tensor:
+        """`_filtered_mask` on the device, uploaded once per (filter,
+        data_version, n) as the alive mask is once per bitmap version."""
+        fkey = self._filter_key(filters)
+        key = (fkey, self.data_version, n)
+        if fkey is not None:
+            with self._filter_cache_lock:
+                mask = self._device_filter_cache.get(key)
+                if mask is not None:
+                    self._device_filter_cache.move_to_end(key)
+                    return mask
+        mask = torch.from_numpy(
+            np.ascontiguousarray(self._filtered_mask(filters, n))
+        ).to(self.device)
+        if fkey is not None:
+            with self._filter_cache_lock:
+                self._device_filter_cache[key] = mask
+                while (len(self._device_filter_cache)
+                       > self._device_filter_cache_max):
+                    self._device_filter_cache.popitem(last=False)
+        return mask
+
     def search(self, req: SearchRequest) -> list[SearchResult]:
-        """Search entry. The reference batches compatible requests here
-        (engine/batching.py); this slice serves every request directly."""
+        """Search entry: compatible concurrent requests pack into padded
+        shape buckets and share one dispatch (engine/batching.py);
+        filtered, brute-force, columnar and batching-disabled requests
+        run directly."""
+        if (self.micro_batch and req.filters is None and not req.brute_force
+                and not req.raw_results and req.vectors):
+            mb = self._microbatcher
+            if mb is None:
+                with self._write_lock:
+                    mb = self._microbatcher
+                    # re-check under the lock: close() clears micro_batch
+                    # before it stops the scheduler
+                    if mb is None and self.micro_batch:
+                        from vearch_tpu_torch.engine.batching import (
+                            BatchScheduler,
+                        )
+
+                        mb = self._microbatcher = BatchScheduler(
+                            self, max_rows=self.micro_batch_max_rows,
+                            max_delay_ms=self.batch_delay_ms)
+            if mb is not None:
+                return mb.submit(req)
         return self._search_direct(req)
 
     def _search_direct(self, req: SearchRequest) -> list[SearchResult]:
         if not req.vectors:
             raise ValueError("search needs at least one vector field")
+        trace = req.trace
+        phases: list[tuple[str, float, float]] = []
+        t_start = time.monotonic()
         n = self.table.doc_count
         if req.filters is not None:
-            valid = self._filtered_mask(req.filters, n)
+            valid = self._device_filtered_mask(req.filters, n)
         else:
             # the alive mask changes only on writes: keep it on the device
             valid = self._device_alive_mask(n)
+        if trace is not None:
+            t_filter = time.monotonic()
+            trace["filter_ms"] = round((t_filter - t_start) * 1e3, 3)
+            phases.append(("engine.filter", t_start, t_filter))
         metrics = {self.indexes[name].metric for name in req.vectors}
         if len(metrics) > 1:
             raise ValueError(
@@ -299,11 +858,16 @@ class Engine:
             )
         per_field: dict[str, tuple[np.ndarray, np.ndarray]] = {}
         queries_by_field: dict[str, np.ndarray] = {}
-        # padded shape buckets (ops/perf_model.py), as the reference pads
-        # every serving dispatch: k=10 scans at fetch-k 16
-        fetch_k = perf_model.bucket_fetch_k(
-            req.k if len(req.vectors) == 1 else max(req.k * 4, 50))
+        fetch_k = req.k if len(req.vectors) == 1 else max(req.k * 4, 50)
+        if self.shape_buckets:
+            # raise the candidate depth to the declared tier, solo and
+            # batched alike, so co-batched requests of differing k stay
+            # bit-identical to solo runs (k=10 scans at fetch-k 16)
+            fetch_k = perf_model.bucket_fetch_k(fetch_k)
         for name, queries in req.vectors.items():
+            if req.ctx is not None:
+                req.ctx.check()
+            t_field = time.monotonic()
             index = self.indexes[name]
             store = self.vector_stores[name]
             queries = np.asarray(queries)
@@ -313,28 +877,53 @@ class Engine:
                 queries.reshape(queries.shape[0], index.input_dim))
             queries_by_field[name] = queries
             b_rows = int(queries.shape[0])
-            # pad rows up to the declared bucket with a REAL row (a zero
-            # row is degenerate under cosine); every scan path is per-row,
-            # so the pad rows change nothing for real rows
             q_run = queries
-            bb = perf_model.bucket_rows(b_rows)
-            if bb != b_rows:
-                q_run = np.concatenate(
-                    [queries, np.repeat(queries[-1:], bb - b_rows, 0)])
-            if index.trained:
+            if self.shape_buckets:
+                # pad rows up to the declared bucket with a REAL row (a
+                # zero row is degenerate under cosine); every scan path
+                # is per-row, so the pad rows change nothing for real rows
+                bb = perf_model.bucket_rows(b_rows)
+                if bb != b_rows:
+                    q_run = np.concatenate(
+                        [queries, np.repeat(queries[-1:], bb - b_rows, 0)])
+            if index.trained and not req.brute_force:
                 if index.indexed_count < store.count:
                     index.absorb(store.count)  # realtime pump
                 scores, ids = index.search(
                     q_run, fetch_k, valid, req.index_params or None)
             else:
-                # brute-force fallback below the training threshold
+                # the exact flat scan: asked for, or below the training
+                # threshold
                 from vearch_tpu_torch.index.flat import FlatIndex
 
                 flat = FlatIndex(IndexParams(metric_type=index.metric), store)
                 scores, ids = flat.search(q_run, fetch_k, valid)
             per_field[name] = (scores[:b_rows], ids[:b_rows])
+            if trace is not None:
+                t_done = time.monotonic()
+                trace[f"search_{name}_ms"] = round(
+                    (t_done - t_field) * 1e3, 3)
+                phases.append((f"engine.search.{name}", t_field, t_done))
+        if req.ctx is not None:
+            req.ctx.check()
+        t_merge = time.monotonic()
         merged = self._merge_fields(per_field, queries_by_field, req)
-        return self._shape_results(merged, req)
+        t_shape = time.monotonic()
+        results = self._shape_results(merged, req)
+        if trace is not None:
+            t_end = time.monotonic()
+            trace["merge_ms"] = round((t_shape - t_merge) * 1e3, 3)
+            trace["shape_ms"] = round((t_end - t_shape) * 1e3, 3)
+            phases += [("engine.merge", t_merge, t_shape),
+                       ("engine.shape", t_shape, t_end)]
+            trace["total_ms"] = round((t_end - t_start) * 1e3, 3)
+            trace["doc_count"] = self.doc_count
+            # extend, not replace: the scheduler may have noted its queue
+            # wait on this trace before the search ran
+            trace["_phase_spans"] = list(trace.get("_phase_spans") or []) + [
+                [name, mono_us(t0), int((t1 - t0) * 1e6)]
+                for name, t0, t1 in phases]
+        return results
 
     def _exact_score(self, name: str, query: np.ndarray,
                      docids: list[int]) -> np.ndarray:
@@ -505,3 +1094,204 @@ class Engine:
             lambda it: it.sort_values,
             tie_key=lambda it: ((it.score if l2 else -it.score), it.key),
         ))
+
+    # -- persistence (the reference's segmented format 2) -------------------
+
+    def snapshot_state(self) -> dict:
+        """Phase 1 of a dump: a consistent point-in-time view, captured
+        under the write lock (pointer copies and stable views of the
+        append-only arrays). write_snapshot() then persists it without
+        the lock."""
+        with self._write_lock:
+            return {
+                "table": self.table.snapshot(),
+                "bits": self.bitmap.snapshot(self.table.doc_count),
+                "vecs": {name: store.host_view()
+                         for name, store in self.vector_stores.items()},
+                "status": int(self.status),
+            }
+
+    # rows per segment before the tail compaction kicks in, and the most
+    # undersized trailing segments tolerated before they are merged: a
+    # flush costs O(new rows), and every MAX_SMALL_SEGMENTS-th small
+    # flush pays one merge
+    SEGMENT_TARGET_ROWS = 100_000
+    MAX_SMALL_SEGMENTS = 8
+
+    def _read_manifest(self, dirpath: str) -> list[dict]:
+        """Validated, contiguous-from-zero segment list (or empty)."""
+        path = os.path.join(dirpath, "MANIFEST.json")
+        if not os.path.exists(path):
+            return []
+        try:
+            with open(path) as f:
+                segs = json.load(f)["segments"]
+        except Exception:
+            return []
+        segs = sorted(segs, key=lambda s: s["start"])
+        out, expect = [], 0
+        for s in segs:
+            if s["start"] != expect or not os.path.isdir(
+                    os.path.join(dirpath, "segments", s["name"])):
+                break
+            out.append(s)
+            expect = s["end"]
+        return out
+
+    def _write_segment(self, snap: dict, dirpath: str, start: int,
+                       end: int) -> dict:
+        name = f"seg_{start:010d}_{end:010d}"
+        final = os.path.join(dirpath, "segments", name)
+        tmp = final + ".tmp"
+        if os.path.isdir(tmp):
+            shutil.rmtree(tmp)
+        if os.path.isdir(final):
+            # orphan of a crash between the rename and the manifest
+            # commit: same rows, but a rename cannot land on a non-empty
+            # directory
+            shutil.rmtree(final)
+        os.makedirs(tmp)
+        tsnap = snap["table"]
+        np.savez(os.path.join(tmp, "table.npz"),
+                 **{n: arr[start:end] for n, arr in tsnap["fixed"].items()})
+        with open(os.path.join(tmp, "table.json"), "w") as f:
+            json.dump({
+                "keys": tsnap["keys"][start:end],
+                "strings": {k: v[start:end]
+                            for k, v in tsnap["strings"].items()},
+            }, f)
+        for fname, view in snap["vecs"].items():
+            # the host rows are f32 for every store_dtype (a bf16 store
+            # rounds only on upload), so the file loads without pickle
+            np.save(os.path.join(tmp, f"vectors_{fname}.npy"),
+                    np.asarray(view[start:end], dtype=np.float32))
+        os.replace(tmp, final)
+        return {"name": name, "start": start, "end": end}
+
+    def write_snapshot(self, snap: dict, dirpath: str) -> None:
+        """Phase 2: persist a snapshot_state() capture, without any engine
+        lock (stores never mutate rows in place).
+
+        Segmented and append-only: rows are immutable once appended, so a
+        flush writes one new segment for the rows since the last seal,
+        rewrites only the small mutable files (bitmap, index state,
+        schema) and commits by an atomic MANIFEST.json replace; a crash
+        mid-flush leaves the previous manifest pointing at intact
+        files."""
+        os.makedirs(os.path.join(dirpath, "segments"), exist_ok=True)
+        count = len(snap["table"]["keys"])
+        segs = self._read_manifest(dirpath)
+        while segs and segs[-1]["end"] > count:
+            segs.pop()  # rewind (restore or truncation): reseal the tail
+        sealed = segs[-1]["end"] if segs else 0
+        # compaction: merge the undersized trailing run into this flush
+        # once it grows long, so the count stays ~count/target + 8
+        small = 0
+        while (small < len(segs)
+               and (segs[-1 - small]["end"] - segs[-1 - small]["start"])
+               < self.SEGMENT_TARGET_ROWS):
+            small += 1
+        if small > self.MAX_SMALL_SEGMENTS:
+            sealed = segs[len(segs) - small]["start"]
+            del segs[len(segs) - small:]
+        if sealed < count:
+            segs.append(self._write_segment(snap, dirpath, sealed, count))
+        with open(os.path.join(dirpath, "schema.json"), "w") as f:
+            json.dump(self.schema.to_dict(), f)
+        np.save(os.path.join(dirpath, "bitmap.npy"), snap["bits"])
+        for name, index in self.indexes.items():
+            state = index.dump_state()
+            if state:
+                np.savez(os.path.join(dirpath, f"index_{name}.npz"), **state)
+        with open(os.path.join(dirpath, "engine.json"), "w") as f:
+            json.dump({"status": snap["status"]}, f)
+        tmp = os.path.join(dirpath, "MANIFEST.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump({"format": 2, "doc_count": count, "segments": segs}, f)
+        os.replace(tmp, os.path.join(dirpath, "MANIFEST.json"))
+        # drop segment directories the committed manifest no longer names
+        keep = {s["name"] for s in segs}
+        segroot = os.path.join(dirpath, "segments")
+        for nm in os.listdir(segroot):
+            if nm not in keep:
+                shutil.rmtree(os.path.join(segroot, nm), ignore_errors=True)
+
+    def dump(self, dirpath: str | None = None) -> None:
+        dirpath = dirpath or self.data_dir
+        if not dirpath:
+            raise ValueError("no dump directory given and no data_dir set")
+        self.write_snapshot(self.snapshot_state(), dirpath)
+
+    def load(self, dirpath: str | None = None) -> None:
+        """Restore a dump (segmented, or the legacy flat layout) into this
+        engine. Index state passes through
+        `convert.index_state_from_reference`, so a dump either package
+        wrote loads; loading re-absorbs every row."""
+        from vearch_tpu_torch.convert import index_state_from_reference
+
+        dirpath = dirpath or self.data_dir
+        if not dirpath or not os.path.exists(dirpath):
+            raise FileNotFoundError(f"no dump at {dirpath}")
+        if os.path.exists(os.path.join(dirpath, "MANIFEST.json")):
+            self._load_segmented(dirpath)
+        else:  # legacy flat dump (pre-segment backups)
+            self.table.load(os.path.join(dirpath, "table"))
+            self.bitmap.load(os.path.join(dirpath, "bitmap.npy"))
+            for name, store in self.vector_stores.items():
+                store.load(os.path.join(dirpath, f"vectors_{name}.npy"))
+        for name, index in self.indexes.items():
+            p = os.path.join(dirpath, f"index_{name}.npz")
+            if os.path.exists(p):
+                with np.load(p, allow_pickle=False) as data:
+                    index.load_state(index_state_from_reference(dict(data)))
+        with open(os.path.join(dirpath, "engine.json")) as f:
+            self.status = IndexStatus(json.load(f)["status"])
+        if self._scalar_manager is not None:
+            self._scalar_manager.rebuild_from_table(self.table)
+        self.data_version += 1
+
+    def _load_segmented(self, dirpath: str) -> None:
+        segs = self._read_manifest(dirpath)
+        self.bitmap.load(os.path.join(dirpath, "bitmap.npy"))
+        keys: list[str] = []
+        strings: dict[str, list] = {n: [] for n in self.table._strings}
+        fixed_parts: dict[str, list[np.ndarray]] = {
+            n: [] for n in self.table._fixed}
+        for s in segs:
+            sd = os.path.join(dirpath, "segments", s["name"])
+            with open(os.path.join(sd, "table.json")) as f:
+                meta = json.load(f)
+            keys.extend(meta["keys"])
+            for n in strings:
+                part = meta["strings"].get(n)
+                if part is None:
+                    # the segment predates this column (e.g. the hidden
+                    # presence column): pad so lengths stay row-aligned
+                    part = [None] * len(meta["keys"])
+                strings[n].extend(part)
+            with np.load(os.path.join(sd, "table.npz")) as data:
+                for n in fixed_parts:
+                    fixed_parts[n].append(data[n])
+        fixed = {
+            n: (np.concatenate(parts) if parts
+                else np.zeros(0, self.table._fixed[n].dtype))
+            for n, parts in fixed_parts.items()
+        }
+        self.table.load_from_segments(
+            keys, strings, fixed, self.bitmap.valid_mask(len(keys)))
+        for name, store in self.vector_stores.items():
+            store.load_parts([
+                p for s in segs
+                if os.path.exists(p := os.path.join(
+                    dirpath, "segments", s["name"], f"vectors_{name}.npy"))
+            ])
+
+    @classmethod
+    def open(cls, dirpath: str, device=None) -> "Engine":
+        """An engine restored from a dump directory (which becomes its
+        data_dir), on `device` (default cuda)."""
+        with open(os.path.join(dirpath, "schema.json")) as f:
+            schema = TableSchema.from_dict(json.load(f))
+        eng = cls(schema, device=device, data_dir=dirpath)
+        eng.load(dirpath)
+        return eng

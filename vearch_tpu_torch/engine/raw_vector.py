@@ -11,9 +11,17 @@ vearch_tpu/engine/raw_vector.py.
 - the squared-norm column is derived on the host from the rows as stored
   (bf16-rounded when `store_dtype` is bfloat16), so it is bit-identical
   to the reference's column.
+
+Persistence streams the host rows, never device state: they are f32 for
+every `store_dtype` (a bf16 store rounds only on upload), so a dump is a
+plain f32 .npy that loads with `allow_pickle=False`, and a load drops
+the device copy, which the next `device_buffer()` uploads once.
 """
 
 from __future__ import annotations
+
+import os
+import threading
 
 import numpy as np
 import torch
@@ -47,6 +55,9 @@ class RawVectorStore:
         self._device: torch.Tensor | None = None  # [capacity, d]
         self._device_sqnorm: torch.Tensor | None = None  # [capacity] f32
         self._device_rows = 0  # rows already mirrored to the device
+        # the batch scheduler's thread and direct searches may flush at
+        # once
+        self._flush_lock = threading.Lock()
 
     @property
     def count(self) -> int:
@@ -89,17 +100,56 @@ class RawVectorStore:
         """Returns (base [capacity, d], base_sqnorm [capacity], n_rows),
         flushing any dirty tail first. Rows >= n_rows are padding and must
         be masked by the caller."""
-        n = self._n
-        cap = self._host.shape[0]
-        if self._device is None or self._device.shape[0] != cap:
-            t, sq = self._stored(self._host)
-            self._device = t.to(self.device, copy=True)
-            self._device_sqnorm = torch.from_numpy(sq).to(self.device)
-            self._device_rows = n
-        elif self._device_rows < n:
-            lo = self._device_rows
-            t, sq = self._stored(self._host[lo:n])
-            self._device[lo:n] = t.to(self.device)
-            self._device_sqnorm[lo:n] = torch.from_numpy(sq).to(self.device)
-            self._device_rows = n
-        return self._device, self._device_sqnorm, n
+        with self._flush_lock:
+            n = self._n
+            cap = self._host.shape[0]
+            if self._device is None or self._device.shape[0] != cap:
+                t, sq = self._stored(self._host)
+                self._device = t.to(self.device, copy=True)
+                self._device_sqnorm = torch.from_numpy(sq).to(self.device)
+                self._device_rows = n
+            elif self._device_rows < n:
+                lo = self._device_rows
+                t, sq = self._stored(self._host[lo:n])
+                self._device[lo:n] = t.to(self.device)
+                self._device_sqnorm[lo:n] = torch.from_numpy(sq).to(
+                    self.device)
+                self._device_rows = n
+            return self._device, self._device_sqnorm, n
+
+    # -- persistence ---------------------------------------------------------
+
+    def dump(self, path: str) -> None:
+        np.save(path, self.host_view())
+
+    def _invalidate_device(self) -> None:
+        with self._flush_lock:
+            self._device = None
+            self._device_sqnorm = None
+            self._device_rows = 0
+
+    def load(self, path: str) -> None:
+        if os.path.exists(path):
+            data = np.load(path)
+            self._host = np.asarray(data, dtype=np.float32).copy()
+            self._n = data.shape[0]
+            self._invalidate_device()
+
+    def load_parts(self, paths: list[str]) -> None:
+        """Restore from per-segment row slices in order (the segmented
+        dump format; Engine.load concatenates the manifest's segments)."""
+        if not paths:
+            return
+        parts = [np.load(p, mmap_mode="r") for p in paths]
+        n = sum(p.shape[0] for p in parts)
+        host = np.zeros((max(n, 1024), self.dimension), dtype=np.float32)
+        off = 0
+        chunk = 1 << 18  # stream from the mmap; never double peak RAM
+        for p in parts:
+            for lo in range(0, p.shape[0], chunk):
+                hi = min(lo + chunk, p.shape[0])
+                host[off + lo: off + hi] = p[lo:hi]
+            off += p.shape[0]
+        self._host = host
+        self._n = n
+        self._invalidate_device()

@@ -15,7 +15,9 @@ Persistence: one .npz for fixed columns + a JSON sidecar for strings/keys
 
 from __future__ import annotations
 
-from typing import Any
+import json
+import os
+from typing import Any, Iterator
 
 import numpy as np
 
@@ -85,6 +87,9 @@ class Table:
     def docid_of(self, key: str) -> int | None:
         return self._key_to_docid.get(key)
 
+    def key_of(self, docid: int) -> str:
+        return self._keys[docid]
+
     def add(self, key: str, fields: dict[str, Any]) -> tuple[int, int | None]:
         """Append a row; returns (new_docid, replaced_docid_or_None).
 
@@ -110,6 +115,20 @@ class Table:
             else:
                 lst.append(fields.get(name))
         return docid, old
+
+    def add_field(self, f) -> None:
+        """Append-only schema evolution: a new scalar column, backfilled
+        with defaults for existing rows. Presence tracking already marks
+        those rows as not having set it, so the defaults are inert for
+        filters and partial updates."""
+        n = len(self._keys)
+        if f.data_type in _FIXED_DTYPES:
+            col = _Column(_FIXED_DTYPES[f.data_type])
+            for _ in range(n):
+                col.append(None)
+            self._fixed[f.name] = col
+        else:
+            self._strings[f.name] = [None] * n
 
     def validate(self, fields: dict[str, Any]) -> None:
         """Raise ValueError for values a typed column cannot take. Must
@@ -201,3 +220,78 @@ class Table:
 
     def string_column(self, name: str) -> list[Any]:
         return self._strings[name]
+
+    def iter_alive(self) -> Iterator[tuple[str, int]]:
+        yield from self._key_to_docid.items()
+
+    # -- persistence ---------------------------------------------------------
+
+    def snapshot(self) -> dict:
+        """Consistent point-in-time capture, O(n) pointer copies only.
+
+        Caller must hold the engine write lock for the call; the returned
+        snapshot may then be written to disk lock-free: columns and keys
+        are append-only (growth reallocates, so captured views never see
+        later writes), and the mutable dict is copied here.
+        """
+        return {
+            "keys": list(self._keys),
+            "key_to_docid": dict(self._key_to_docid),
+            "strings": {k: list(v) for k, v in self._strings.items()},
+            "fixed": {name: col.view() for name, col in self._fixed.items()},
+        }
+
+    def dump_snapshot(self, snap: dict, dirpath: str) -> None:
+        os.makedirs(dirpath, exist_ok=True)
+        np.savez(os.path.join(dirpath, "columns.npz"), **snap["fixed"])
+        meta = {
+            "keys": snap["keys"],
+            "key_to_docid": snap["key_to_docid"],
+            "strings": snap["strings"],
+        }
+        with open(os.path.join(dirpath, "table.json"), "w") as f:
+            json.dump(meta, f)
+
+    def dump(self, dirpath: str) -> None:
+        self.dump_snapshot(self.snapshot(), dirpath)
+
+    def load(self, dirpath: str) -> None:
+        """Restore a flat (pre-segment) dump."""
+        with open(os.path.join(dirpath, "table.json")) as f:
+            meta = json.load(f)
+        self._keys = meta["keys"]
+        self._key_to_docid = {k: int(v)
+                              for k, v in meta["key_to_docid"].items()}
+        self._strings = meta["strings"]
+        # pre-presence dumps: None rows read as "all fields set"
+        self._strings.setdefault(
+            self.PRESENCE_COL, [None] * len(self._keys))
+        data = np.load(os.path.join(dirpath, "columns.npz"))
+        for name, col in self._fixed.items():
+            arr = data[name]
+            col._data = arr.copy()
+            col._n = arr.shape[0]
+
+    def load_from_segments(
+        self,
+        keys: list[str],
+        strings: dict[str, list],
+        fixed: dict[str, np.ndarray],
+        alive_mask: np.ndarray,
+    ) -> None:
+        """Restore from concatenated segment slices. key -> docid is not
+        persisted in the segmented format; it is derivable: an update
+        appends a new row and soft-deletes the old one, so for any key
+        only its latest row can be alive, and the map is exactly
+        {key: docid | alive[docid]} (deleted keys' last rows are dead)."""
+        self._keys = keys
+        self._strings = strings
+        self._strings.setdefault(self.PRESENCE_COL, [None] * len(keys))
+        for name, col in self._fixed.items():
+            arr = fixed[name]
+            col._data = arr.copy() if arr.base is not None else arr
+            col._n = arr.shape[0]
+        alive = np.asarray(alive_mask, dtype=bool)
+        self._key_to_docid = {
+            keys[d]: d for d in np.flatnonzero(alive[: len(keys)]).tolist()
+        }

@@ -9,6 +9,8 @@ nothing of vearch_tpu); the reference's table/space schema
 from __future__ import annotations
 
 import enum
+import threading
+import time
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -70,6 +72,22 @@ class IndexParams:
     def get(self, key: str, default: Any = None) -> Any:
         return self.params.get(key, default)
 
+    def to_dict(self) -> dict[str, Any]:
+        return {
+            "index_type": self.index_type,
+            "metric_type": self.metric_type.value,
+            "params": dict(self.params),
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "IndexParams":
+        return cls(
+            index_type=d.get("index_type", "FLAT"),
+            metric_type=MetricType(d.get("metric_type", "L2")),
+            params=dict(d.get("params", {})),
+        )
+
+
 @dataclass
 class FieldSchema:
     """One field of a table (reference: entity/space.go `SpaceProperties`,
@@ -91,6 +109,26 @@ class FieldSchema:
         if self.index and self.index.index_type.upper() == "BINARYIVF":
             return self.dimension // 8
         return self.dimension
+
+    def to_dict(self) -> dict[str, Any]:
+        return {
+            "name": self.name,
+            "data_type": self.data_type.value,
+            "dimension": self.dimension,
+            "index": self.index.to_dict() if self.index else None,
+            "scalar_index": self.scalar_index.value,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "FieldSchema":
+        return cls(
+            name=d["name"],
+            data_type=DataType(d["data_type"]),
+            dimension=d.get("dimension", 0),
+            index=IndexParams.from_dict(d["index"]) if d.get("index") else None,
+            scalar_index=ScalarIndexType(d.get("scalar_index", "NONE")),
+        )
+
 
 @dataclass
 class TableSchema:
@@ -120,6 +158,26 @@ class TableSchema:
             if f.name == name:
                 return f
         raise KeyError(f"no field named {name!r}")
+
+    def to_dict(self) -> dict[str, Any]:
+        return {
+            "name": self.name,
+            "fields": [f.to_dict() for f in self.fields],
+            "training_threshold": self.training_threshold,
+            "refresh_interval_ms": self.refresh_interval_ms,
+            "composite_indexes": self.composite_indexes,
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "TableSchema":
+        return cls(
+            name=d["name"],
+            fields=[FieldSchema.from_dict(f) for f in d["fields"]],
+            training_threshold=d.get("training_threshold", 0),
+            refresh_interval_ms=d.get("refresh_interval_ms", 1000),
+            composite_indexes=[list(c) for c in d.get("composite_indexes", [])],
+        )
+
 
 @dataclass
 class SearchResultItem:
@@ -152,3 +210,50 @@ class ColumnarSearchResults:
 
     keys: list[list[str]]
     scores: Any  # np.ndarray [sum(len(keys_i))] f32
+
+
+class RequestKilled(Exception):
+    pass
+
+
+class RequestContext:
+    """Kill flag for one in-flight request (the reference's
+    api_data/request_context.h, flipped by a slow-request killer or an
+    admin call).
+
+    `deadline` (absolute `time.monotonic()` seconds) arms check() itself:
+    a request past its deadline kills itself at the next phase boundary,
+    between device dispatches, never inside a kernel. `reason_code` is
+    the bounded label a serving layer exports."""
+
+    def __init__(self, request_id: str = "",
+                 deadline: float | None = None):
+        self.request_id = request_id
+        self.deadline = deadline
+        self.killed = False
+        self.reason = ""
+        self.reason_code = ""
+
+    def kill(self, reason: str = "killed", code: str = "operator") -> None:
+        self.killed = True
+        self.reason = reason
+        self.reason_code = code
+
+    def check(self) -> None:
+        if (not self.killed and self.deadline is not None
+                and time.monotonic() > self.deadline):
+            self.kill("deadline exceeded", code="deadline")
+        if self.killed:
+            raise RequestKilled(self.reason or "request killed")
+
+
+class _FieldBuild:
+    """In-flight scalar field-index build: target type, completion
+    event, and the build's error (read by synchronous joiners)."""
+
+    __slots__ = ("value", "done", "error")
+
+    def __init__(self, value: str):
+        self.value = value
+        self.done = threading.Event()
+        self.error: BaseException | None = None

@@ -69,5 +69,11 @@ class VectorIndex(abc.ABC):
         structure. Indexes that search the raw store just advance."""
         self.indexed_count = upto
 
+    def dump_state(self) -> dict[str, Any]:
+        """Arrays a dump persists for this index (`Engine.dump` writes
+        them to index_<field>.npz); none for an index that re-absorbs
+        from the raw rows."""
+        return {}
+
     def load_state(self, state: dict[str, Any]) -> None:
         pass

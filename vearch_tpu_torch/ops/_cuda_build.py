@@ -7,8 +7,11 @@ is a CPython extension module, compiled with g++ against the running
 interpreter's headers and imported from its file (`HostExtension`).
 Either lands in vearch_tpu_torch/_build/ under a name that carries a
 hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is loaded as it is. A build happens at first use; a failed
-build raises.
+unchanged one is loaded as it is. A build happens at first use, under a
+lock, so two threads that launch at once build once; a failed build
+raises. `count_launch` adds one to a wrapper's launch counter under a
+lock, so launches from the batch scheduler's thread and the caller's
+are all counted.
 """
 
 from __future__ import annotations
@@ -29,6 +32,15 @@ PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """One more launch of `wrapper`'s kernel (its `launches` attribute)."""
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def _nvcc() -> str:

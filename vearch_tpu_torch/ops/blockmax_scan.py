@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from vearch_tpu_torch.ops._cuda_build import CudaLibrary
+from vearch_tpu_torch.ops._cuda_build import CudaLibrary, count_launch
 from vearch_tpu_torch.ops.distance import NEG_INF, sqnorms, stable_topk
 
 BLOCK = 512  # rows per block maximum (ops/ivf.py BLOCK)
@@ -139,7 +139,7 @@ def int8_blockmax_stage1(
     if err != 0:
         raise RuntimeError(f"blockmax_scan kernel launch failed: "
                            f"cudaError {err}")
-    int8_blockmax_stage1.launches += 1
+    count_launch(int8_blockmax_stage1)
     return out
 
 

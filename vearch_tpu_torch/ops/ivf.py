@@ -38,6 +38,8 @@ which is the `jax.lax.top_k` order.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from vearch_tpu_torch.engine.types import MetricType
@@ -53,17 +55,22 @@ from vearch_tpu_torch.ops.distance import NEG_INF, sqnorms, stable_topk
 # tag names (fused_scan_rerank, pallas_blockmax_scan, scan, probe_scan,
 # ivfflat_scan, rerank, flat_scan, binary_refine_rerank) so the two
 # packages' ledgers compare line by line.
+# The ledger is process-wide: searches the batch scheduler's thread runs
+# note into it too, under a lock.
 _dispatch_ledger: list | None = None
+_ledger_lock = threading.Lock()
 
 
 def set_dispatch_ledger(ledger: list | None) -> None:
     global _dispatch_ledger
-    _dispatch_ledger = ledger
+    with _ledger_lock:
+        _dispatch_ledger = ledger
 
 
 def note_dispatch(tag: str) -> None:
-    if _dispatch_ledger is not None:
-        _dispatch_ledger.append(tag)
+    with _ledger_lock:
+        if _dispatch_ledger is not None:
+            _dispatch_ledger.append(tag)
 
 
 def coarse_dots(queries: torch.Tensor, centroids: torch.Tensor

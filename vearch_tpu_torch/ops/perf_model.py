@@ -1,5 +1,6 @@
 """Serving shape buckets and the three-stage auto depths, the parts of
-vearch_tpu/ops/perf_model.py that search needs.
+vearch_tpu/ops/perf_model.py that search and the scheduler
+(engine/batching.py) need.
 
 The engine pads every search to a declared row tier and raises its
 candidate depth to a declared fetch-k tier (k=10 scans at 16); results

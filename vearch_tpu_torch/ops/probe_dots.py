@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from vearch_tpu_torch.ops._cuda_build import CudaLibrary
+from vearch_tpu_torch.ops._cuda_build import CudaLibrary, count_launch
 from vearch_tpu_torch.ops.distance import NEG_INF, sqnorms, stable_topk
 from vearch_tpu_torch.ops.ivf import coarse_dots, select_probes
 
@@ -170,7 +170,7 @@ def launch_grouped(
     if err != 0:
         raise RuntimeError(f"probe_dots kernel launch failed: "
                            f"cudaError {err}")
-    ivf_probe_dots.launches += 1
+    count_launch(ivf_probe_dots)
     return out
 
 

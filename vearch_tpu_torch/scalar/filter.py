@@ -5,12 +5,11 @@ surface is the reference's (internal/router/document/doc_query.go:85
 parseFilter — JSON `{"operator": "AND"|"OR", "conditions": [{"field",
 "operator", "value"}]}` with range ops < <= > >= = != <> and term ops
 IN / NOT IN). Conditions compile to a host boolean mask over the docid
-space (vectorised numpy on columnar fields), which the engine ANDs with
-the deletion bitmap and applies inside the scan.
-
-Scalar indexes (and so composite-index planning) are not ported yet:
-every condition evaluates against the table's columns, which is what the
-reference does for a schema without scalar indexes.
+space, which the engine ANDs with the deletion bitmap and applies inside
+the scan: a lookup in the field's scalar index (scalar/manager.py) where
+one exists, else a vectorised numpy scan of the table's column, and one
+composite-index lookup for an AND filter that covers a composite's
+prefix (the reference's scalar_index_manager.h planning).
 """
 
 from __future__ import annotations
@@ -94,8 +93,15 @@ def _eval_strings(rows: list[Any], cond: Condition, n: int) -> np.ndarray:
     return out
 
 
-def evaluate_condition(cond: Condition, table, n: int) -> np.ndarray:
-    """[n] bool mask for one condition over the table's columns."""
+def evaluate_condition(cond: Condition, engine, n: int) -> np.ndarray:
+    """[n] bool mask for one condition; prefers a scalar index."""
+    mgr = engine._scalar_manager
+    if mgr is not None:
+        mask = mgr.query_if_indexed(cond, n)
+        if mask is not None:
+            return mask
+    engine.schema.field(cond.field)  # unknown fields raise KeyError
+    table = engine.table
     try:
         col = table.column(cond.field)[:n]
         return _eval_fixed(col, cond)
@@ -104,13 +110,57 @@ def evaluate_condition(cond: Condition, table, n: int) -> np.ndarray:
         return _eval_strings(rows, cond, n)
 
 
-def evaluate_filter(flt, table, n: int) -> np.ndarray:
-    """Evaluate a Filter (or its dict form) to an [n] bool mask."""
+def evaluate_filter(flt, engine, n: int) -> np.ndarray:
+    """Evaluate a Filter (or its dict form) to an [n] bool mask.
+
+    Planning: an AND filter whose equality conditions cover a prefix of
+    a declared composite index (plus at most one range condition on the
+    member after the prefix) resolves those in one composite lookup;
+    all other conditions evaluate per field and combine.
+    """
     if isinstance(flt, dict):
         flt = Filter.from_dict(flt)
     if not flt.conditions:
         return np.ones(n, dtype=bool)
-    masks = [evaluate_condition(c, table, n) for c in flt.conditions]
+
+    conditions = list(flt.conditions)
+    masks: list[np.ndarray] = []
+    mgr = engine._scalar_manager
+    if flt.operator == "AND" and mgr is not None:
+        # the best composite serves the longest '=' prefix of its member
+        # fields plus at most one range condition on the field right
+        # after the prefix; leftover conditions evaluate per field
+        eq_by_field = {c.field: c for c in conditions if c.operator == "="}
+        range_by_field: dict[str, Condition] = {}
+        for c in conditions:
+            if c.operator in ("<", "<=", ">", ">="):
+                range_by_field.setdefault(c.field, c)
+        best = None  # (covered_count, ci, prefix_fields, range_cond)
+        for ci in mgr.composites():
+            prefix = []
+            for f in ci.fields:
+                if f in eq_by_field:
+                    prefix.append(f)
+                else:
+                    break
+            rc = None
+            if len(prefix) < len(ci.fields):
+                rc = range_by_field.get(ci.fields[len(prefix)])
+            covered = len(prefix) + (1 if rc is not None else 0)
+            if covered and (best is None or covered > best[0]):
+                best = (covered, ci, prefix, rc)
+        if best is not None:
+            _, ci, prefix, rc = best
+            masks.append(ci.query_prefix(
+                tuple(eq_by_field[f].value for f in prefix), rc, n
+            ))
+            consumed_ids = {id(eq_by_field[f]) for f in prefix}
+            if rc is not None:
+                consumed_ids.add(id(rc))
+            conditions = [c for c in conditions
+                          if id(c) not in consumed_ids]
+
+    masks.extend(evaluate_condition(c, engine, n) for c in conditions)
     out = masks[0].copy()
     for m in masks[1:]:
         if flt.operator == "AND":
