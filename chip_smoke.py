@@ -10,8 +10,8 @@ Phases:
    nvcc's -Xptxas -v report (registers, shared memory, spills) and the
    count of tensor-core instructions (HGMMA, HMMA) in each library's
    SASS, where cuobjdump is present. Then the data (1M x 128 rows from
-   seed 0), and the HNSW graph of phase 5 starts building on its own
-   thread.
+   seed 0), and the HNSW graphs of phases 5 and 6 start building, each
+   on its own thread.
 2. Kernels vs their plain versions on the card, case by case, with
    kernel / plain / library times and the card's bound for the same work:
    - block-max scan: block maxima within one bf16 ulp of the plain
@@ -75,6 +75,31 @@ Phases:
    the HNSW coarse quantizer (probe dots), BINARYIVF on random bits (each
    query finds itself at Hamming 0) and HNSW's graph at the sizes in
    REDUCED. No deleted key may come back on IVFRABITQ and the HNSW scan.
+6. Disk and tiered storage (`phase_disk`), on the main path's rows in a
+   temporary data_dir on local disk (removed after), each engine freed
+   before the next:
+   - DISKANN (2048 cells, nprobe 64, f32 Disk store) through Engine at a
+     resident cache budget (4096 MB: every slab fits) and the default
+     512 MB (~468 slots: the 1024-query batch takes several passes):
+     first and warmed ms, H2D bytes a search from the PCIe ledger (a
+     warmed resident search must move 0), recall@10 at the default
+     rerank and at 512 (>= 0.95), probe-dots launches (> 0), one
+     search split by part and one profiled, `tiering_info`; the
+     probe-dots kernel at this path's shape (the resident pool as
+     buckets) against its plain version, as in phase 2;
+   - bench.py's tiered_storage_bench mix at these rows: 32 fixed
+     8-query groups drawn Zipf(1.1) with seed 11, 12 x 32 warm and 8 x
+     32 measured searches on the tiered budget, then the resident one;
+   - 2048 tail rows far from every query, `Engine.dump` in place,
+     `Engine.open`: dump and open seconds (segments, the rebuild of the
+     bucket lists from assign.i32, the tail absorb), the first search,
+     and its ids equal to the resident search's before the dump;
+   - IVFPQ (the main path's settings, bf16 Disk store; block-max kernel,
+     recall >= 0.95 at rerank 512, no fused rerank), IVFRABITQ
+     (binary_refine_scan, counted as a disk search) and FLAT (the
+     streaming exact scan, 64 queries, exact ids) on Disk stores, and
+     HNSW "auto" on a Disk store at 20,000 rows (the graph, built on a
+     second background thread from the start).
 
 Before the last three lines comes each kernel's time before its redesign,
 quoted from PERF.md and labelled so. The last three lines are the card's
@@ -92,6 +117,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -106,7 +132,8 @@ PROBE_PARAMS = {"scan_mode": "probe", "nprobe": 64}  # per_index.py's nprobe
 F32_U = 2.0 ** -24  # unit roundoff of f32
 GRAPH_ROWS, GRAPH_B = 20_000, 64  # HNSW graph mode (host build), reduced
 HNSWQ_ROWS = 200_000  # IVFPQ + HNSW coarse quantizer (per_index.py's n)
-# phase_family's cuts of scale, each with its reason
+FLAT_DISK_B = 64  # queries of the streaming FLAT scan on a disk store
+# phase_family's and phase_disk's cuts of scale, each with its reason
 REDUCED = {
     "hnsw_graph": f"{GRAPH_ROWS} rows, {GRAPH_B} queries: the graph is "
                   "single-threaded host C++ whose 1M-row build would take "
@@ -114,6 +141,11 @@ REDUCED = {
     "ivfpq_hnsw_quantizer": f"{HNSWQ_ROWS} rows and 1024 centroids "
                             "(scripts/benchmarks/per_index.py's scale): "
                             "absorb assigns every row by a host graph walk",
+    "flat_disk": f"{FLAT_DISK_B} queries: the exact scan streams all 1M "
+                 "rows through the card in 262,144-row chunks per batch",
+    "hnsw_disk": f"{GRAPH_ROWS} rows, {GRAPH_B} queries, as hnsw_graph: "
+                 "the graph that auto picks on a disk store is the same "
+                 "single-threaded host build",
 }
 # each kernel's B=1024 time before its redesign, quoted from PERF.md
 # section 6 (not measured by this script): the CUDA-core block-max
@@ -1438,6 +1470,428 @@ def phase_engine(dev, base, queries) -> tuple[dict, dict]:
     return out, paths
 
 
+# -- phase_disk: disk and tiered storage ------------------------------------
+
+DISK_PARAMS = {"ncentroids": 2048, "nprobe": 64, "train_iters": 8}
+RESIDENT_MB, TIERED_MB = 4096, 512  # every slab fits; the default budget
+MIX_GROUPS, MIX_B, MIX_WARM, MIX_MEAS = 32, 8, 12, 8  # bench.py's mix
+
+
+def disk_engine(index_type, params, data_dir, metric="L2", d=128):
+    from vearch_tpu_torch.engine.engine import Engine
+    from vearch_tpu_torch.engine.types import (
+        DataType, FieldSchema, IndexParams, MetricType, TableSchema,
+    )
+
+    schema = TableSchema("disk", [FieldSchema(
+        "emb", DataType.VECTOR, dimension=d,
+        index=IndexParams(index_type, MetricType(metric), params))])
+    return Engine(schema, data_dir=data_dir)
+
+
+def build_disk_graph_engine(rows, data_dir) -> tuple:
+    """HNSW with graph "auto" on a Disk store over `rows` (the graph is
+    picked because the store is on disk), built on its own thread while
+    the card works, as build_graph_engine."""
+    eng = disk_engine("HNSW", {"store_type": "Disk", "nlinks": 32,
+                               "efSearch": 64, "efConstruction": 160},
+                      data_dir)
+    return eng, ingest_and_build(eng, rows, step=25_000)
+
+
+def h2d_total() -> int:
+    from vearch_tpu_torch.ops import perf_model
+
+    return perf_model.h2d_bytes_total()
+
+
+def disk_split(eng, req) -> dict:
+    """Seconds of one search in each part of the disk path (the card
+    synchronised at each part's exit): coarse probes, slab resolution
+    (its uploads: RAM tier or mmap fetch, slab assembly, H2D), the
+    cached bucket scan (the probe-dots kernel, epilogue, top-r), the
+    host row gather of the rerank candidates, the rerank itself."""
+    from vearch_tpu_torch.engine.disk_vector import DiskRawVectorStore
+    from vearch_tpu_torch.index.hbm_cache import HbmBucketCache
+    from vearch_tpu_torch.ops import ivf as ivf_ops
+
+    t0 = time.monotonic()
+    with timed_methods({
+            "coarse_s": (ivf_ops, "_coarse_probes"),
+            "resolve_s": (HbmBucketCache, "acquire"),
+            "upload_s": (HbmBucketCache, "_upload"),
+            "scan_s": (ivf_ops, "cached_bucket_scan"),
+            "row_gather_s": (DiskRawVectorStore, "get_rows"),
+            "rerank_s": (ivf_ops, "exact_rerank_gathered")}) as spent:
+        eng.search(req)
+    return dict(spent, total_s=time.monotonic() - t0)
+
+
+def tier_search(eng, queries, params, truth, iters=3, split=False) -> dict:
+    """One DISKANN request: the first search and the mean of `iters`
+    more (ms), H2D bytes of each from the ledger, recall@10, the
+    probe-dots launches of the first (set to 0 just before it); with
+    `split`, one more search split by part and one profiled."""
+    import torch
+
+    req = family_request(queries, params)
+    reset_launches()
+    h0 = h2d_total()
+    t0 = time.monotonic()
+    res = eng.search(req)
+    torch.cuda.synchronize()
+    out = {"params": params, "B": len(queries),
+           "first_ms": (time.monotonic() - t0) * 1e3,
+           "first_h2d_bytes": h2d_total() - h0,
+           "launches": read_launches(), "recall_at_10": recall_at_10(
+               res, truth)}
+    h0 = h2d_total()
+    t0 = time.monotonic()
+    for _ in range(iters):
+        eng.search(req)
+    torch.cuda.synchronize()
+    out["warm_ms"] = (time.monotonic() - t0) * 1e3 / iters
+    out["warm_h2d_bytes_per_search"] = (h2d_total() - h0) / iters
+    out["qps"] = len(queries) * 1e3 / out["warm_ms"]
+    if split:
+        out["split_s"] = disk_split(eng, req)
+        out["profile"] = profile_search(eng, req)
+    print("disk_search " + json.dumps(out), flush=True)
+    check(out["launches"]["ivf_probe_dots"] > 0,
+          f"DISKANN {params} never launched the probe-dots kernel")
+    return out, res
+
+
+def set_cache_mb(eng, mb) -> None:
+    """The slab cache's device budget, through apply_config's
+    index_params; the next search rebuilds the cache at that size."""
+    eng.apply_config({"index_params": {"emb": {"cache_mb": mb}}})
+
+
+def tier_budget(eng, queries, truth, mb) -> dict:
+    """The DISKANN searches of one cache budget: the default rerank
+    (first and warmed) and rerank 512, with the passes it takes."""
+    set_cache_mb(eng, mb)
+    index = eng.indexes["emb"]
+    out = {"cache_mb": mb}
+    out["default"], res = tier_search(eng, queries, {}, truth, split=True)
+    out["gated"], _ = tier_search(eng, queries, GATED_PARAMS, truth, iters=1)
+    probes = coarse_probes(index, queries, DISK_PARAMS["nprobe"])
+    out["distinct_buckets"] = int(np.unique(probes).size)
+    out["passes"] = len(index._cache.plan_passes(probes))
+    out["tiering_info"] = eng.tiering_info()
+    print(f"disk_budget {mb} " + json.dumps(out), flush=True)
+    check(out["gated"]["recall_at_10"] >= 0.95,
+          f"DISKANN cache_mb {mb}: recall@10 "
+          f"{out['gated']['recall_at_10']} < 0.95 at rerank 512")
+    return out, res
+
+
+def coarse_probes(index, queries, nprobe) -> np.ndarray:
+    from vearch_tpu_torch.ops.ivf import _coarse_probes
+
+    q = index._to_device(np.asarray(queries, np.float32))
+    return _coarse_probes(q, index.centroids, nprobe).cpu().numpy()
+
+
+def tiering_mix(eng, queries, mb_tiered, mb_resident) -> dict:
+    """bench.py's tiered_storage_bench mix at the main rows: MIX_GROUPS
+    fixed MIX_B-query groups of the main queries drawn Zipf(1.1) with
+    seed 11, MIX_WARM x groups warm searches then MIX_MEAS x groups
+    measured, on the tiered budget; then the same measured draw on the
+    resident budget, warmed on its first quarter. Searches go to the
+    index directly, as the bench's do."""
+    import torch
+
+    index = eng.indexes["emb"]
+    rng = np.random.default_rng(11)
+    groups = [queries[g * MIX_B:(g + 1) * MIX_B] for g in range(MIX_GROUPS)]
+    w = 1.0 / np.power(np.arange(1, MIX_GROUPS + 1), 1.1)
+    order = rng.choice(MIX_GROUPS, size=MIX_WARM * MIX_GROUPS, p=w / w.sum())
+    meas = rng.choice(MIX_GROUPS, size=MIX_MEAS * MIX_GROUPS, p=w / w.sum())
+    set_cache_mb(eng, mb_tiered)
+    with index._absorb_lock:
+        cache = index._ensure_cache()
+    cache.invalidate()  # a cold start at this budget
+    reset_launches()
+    h0 = h2d_total()
+    index.search(groups[0], 10, None)
+    torch.cuda.synchronize()
+    cold = h2d_total() - h0
+    t0 = time.monotonic()
+    for g in order:  # warm: pins form, the predictor learns
+        index.search(groups[int(g)], 10, None)
+    index._prefetcher.drain()
+    warm_s = time.monotonic() - t0
+    st0 = index._cache.stats()
+    h0 = h2d_total()
+    t0 = time.monotonic()
+    for g in meas:
+        index.search(groups[int(g)], 10, None)
+    torch.cuda.synchronize()
+    dt_tiered = time.monotonic() - t0
+    index._prefetcher.drain()
+    st1 = index._cache.stats()
+    steady = h2d_total() - h0
+    launches = read_launches()
+    lookups = st1["hits"] + st1["misses"] - st0["hits"] - st0["misses"]
+    hits = st1["hits"] - st0["hits"]
+    served = (st1["pin_hits"] + st1["prefetch_hits"]
+              - st0["pin_hits"] - st0["prefetch_hits"])
+    set_cache_mb(eng, mb_resident)
+    for g in meas[: len(meas) // 4]:  # warm the resident budget too
+        index.search(groups[int(g)], 10, None)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for g in meas:
+        index.search(groups[int(g)], 10, None)
+    torch.cuda.synchronize()
+    dt_resident = time.monotonic() - t0
+    nq = len(meas) * MIX_B
+    out = {"groups": MIX_GROUPS, "group_b": MIX_B,
+           "warm_searches": len(order), "measured_searches": len(meas),
+           "hbm_slots": st1["slots"], "slab_bytes": st1["slab_bytes"],
+           "warm_s": warm_s,
+           "cold_h2d_bytes_per_query": cold / MIX_B,
+           "steady_h2d_bytes_per_query": steady / nq,
+           "steady_hit_rate": hits / max(lookups, 1),
+           "pin_prefetch_share": served / max(lookups, 1),
+           "tiered_qps": nq / dt_tiered, "resident_qps": nq / dt_resident,
+           "tiering_qps_cost_pct": 100.0 * (1 - dt_resident / dt_tiered),
+           "launches": launches,
+           "prefetch": index.tiering_info()["prefetch"]}
+    print("disk_mix " + json.dumps(out), flush=True)
+    check(launches["ivf_probe_dots"] > 0,
+          "the tiering mix never launched the probe-dots kernel")
+    return out
+
+
+def disk_recovery(eng, data_dir, queries, keys_before, rows) -> tuple:
+    """Tail rows past the index's durable count, Engine.dump in place
+    (segments, flush_disk, the scan files flushed), close, Engine.open:
+    the bucket lists rebuilt from assign.i32 and only the tail absorbed.
+    The ids of the resident search must come back equal."""
+    import torch
+
+    from vearch_tpu_torch.engine.engine import Engine
+    from vearch_tpu_torch.index.disk import DiskANNIndex
+
+    n = eng.vector_stores["emb"].count
+    eng.upsert([{"_id": f"t{j}", "emb": rows[j]} for j in range(len(rows))])
+    t0 = time.monotonic()
+    eng.dump()
+    out = {"tail_rows": len(rows), "dump_s": time.monotonic() - t0}
+    out["segment_mb"] = sum(
+        os.path.getsize(os.path.join(dp, f))
+        for dp, _d, files in os.walk(os.path.join(data_dir, "segments"))
+        for f in files) / 2 ** 20
+    eng.close()
+    del eng
+    release_device_memory()
+    t0 = time.monotonic()
+    with timed_methods({
+            "segments_s": (Engine, "_load_segmented"),
+            "index_load_state_s": (DiskANNIndex, "load_state"),
+            "tail_absorb_s": (DiskANNIndex, "absorb")}) as split:
+        eng2 = Engine.open(data_dir)
+    out["open_s"] = time.monotonic() - t0
+    out["open_split"] = split
+    out["assign_rebuild_s"] = (split["index_load_state_s"]
+                               - split["tail_absorb_s"])
+    index = eng2.indexes["emb"]
+    check(index.indexed_count == n + len(rows),
+          f"reopened DISKANN indexed {index.indexed_count} of "
+          f"{n + len(rows)}")
+    set_cache_mb(eng2, RESIDENT_MB)
+    reset_launches()
+    t0 = time.monotonic()
+    res = eng2.search(family_request(queries, {}))
+    torch.cuda.synchronize()
+    out["first_search_ms"] = (time.monotonic() - t0) * 1e3
+    out["launches"] = read_launches()
+    out["equal_ids_after_open"] = res.keys == keys_before
+    print("disk_recovery " + json.dumps(out), flush=True)
+    check(out["equal_ids_after_open"],
+          "DISKANN ids differ after the in-place dump and open")
+    return out, eng2
+
+
+def tied_exact(dev, queries, base, got_keys, truth) -> int:
+    """Rows whose returned ids differ from the exact ones other than by
+    an f32 tie of the exact distances (checked on the card)."""
+    import torch
+
+    bad = 0
+    q = torch.from_numpy(np.ascontiguousarray(queries)).to(dev)
+    for i, row in enumerate(got_keys):
+        got = [int(k[1:]) for k in row]
+        if got == truth[i].tolist():
+            continue
+        ids = torch.tensor(sorted(set(got) | set(truth[i].tolist())),
+                           device=dev)
+        rows = torch.from_numpy(base[ids.cpu().numpy()]).to(dev)
+        dist = ((rows - q[i]) ** 2).sum(1)
+        kth = torch.sort(dist).values[9]
+        mine = dist[torch.isin(ids, torch.tensor(got, device=dev))]
+        if bool((mine > kth * (1 + 1e-5) + 1e-4).any()):
+            bad += 1
+    return bad
+
+
+def disk_other_types(dev, base, queries, truth, tmp, graph_build) -> dict:
+    """IVFPQ, IVFRABITQ and FLAT on a Disk store at the main rows, and
+    HNSW auto (graph) on a Disk store at GRAPH_ROWS; each engine freed
+    before the next."""
+    from vearch_tpu_torch.engine.types import MetricType
+    from vearch_tpu_torch.ops import binary_scan as bs
+    from vearch_tpu_torch.ops import ivf as ivf_ops
+
+    n = len(base)
+    out = {}
+    # IVFPQ: the main path's settings on a bf16 disk store
+    ddir = os.path.join(tmp, "ivfpq")
+    eng = disk_engine("IVFPQ", {
+        "store_type": "Disk", "ncentroids": 2048, "nsubvector": 32,
+        "train_iters": 8, "training_threshold": 2 * n,
+        "store_dtype": "bfloat16"}, ddir)
+    sub = ingest_and_build(eng, base)
+    sub["gated"], _ = run_path(eng, queries, GATED_PARAMS, truth, iters=1)
+    sub["profile"] = profile_search(eng, family_request(queries,
+                                                        GATED_PARAMS))
+    check(sub["gated"]["recall_at_10"] >= 0.95,
+          f"IVFPQ on a Disk store: recall@10 "
+          f"{sub['gated']['recall_at_10']} < 0.95 at rerank 512")
+    check(sub["gated"]["launches"]["int8_blockmax_scan"] > 0,
+          "IVFPQ on a Disk store never launched the block-max kernel")
+    check("fused_scan_rerank" not in sub["gated"]["tags"],
+          "IVFPQ on a Disk store took the fused scan + rerank")
+    out["ivfpq_disk"] = sub
+    eng.close()
+    del eng
+    release_device_memory()
+    shutil.rmtree(ddir, ignore_errors=True)
+    # IVFRABITQ, three stages, rerank on the host gather
+    ddir = os.path.join(tmp, "rabitq")
+    eng = disk_engine("IVFRABITQ", {
+        "store_type": "Disk", "ncentroids": 2048, "train_iters": 8,
+        "training_threshold": 2 * n, "store_dtype": "bfloat16"}, ddir)
+    sub = ingest_and_build(eng, base)
+    before = bs.refine_search_counts()["disk"]
+    sub["three_stage"], _ = run_path(eng, queries, {"rerank": 256}, truth,
+                                     iters=1)
+    sub["refine_disk_searches"] = bs.refine_search_counts()["disk"] - before
+    check(sub["three_stage"]["tags"] == ["binary_refine_scan", "rerank"],
+          f"IVFRABITQ on a Disk store tags {sub['three_stage']['tags']}")
+    check(sub["refine_disk_searches"] > 0,
+          "IVFRABITQ on a Disk store counted no disk search")
+    out["ivfrabitq_disk"] = sub
+    eng.close()
+    del eng
+    release_device_memory()
+    shutil.rmtree(ddir, ignore_errors=True)
+    # FLAT: the exact scan streamed over the mmap
+    ddir = os.path.join(tmp, "flat")
+    eng = disk_engine("FLAT", {"store_type": "Disk"}, ddir)
+    sub = ingest_and_build(eng, base)
+    q = queries[:FLAT_DISK_B]
+    sub["search"], res = run_path(eng, q, {}, truth[:FLAT_DISK_B], iters=1)
+    sub["rows_not_exact"] = tied_exact(dev, q, base, res.keys,
+                                       truth[:FLAT_DISK_B])
+    check(sub["rows_not_exact"] == 0,
+          f"FLAT on a Disk store: {sub['rows_not_exact']} rows differ "
+          f"from exact search beyond f32 ties")
+    out["flat_disk"] = sub
+    eng.close()
+    del eng
+    release_device_memory()
+    shutil.rmtree(ddir, ignore_errors=True)
+    # HNSW auto on a Disk store: the graph, built on its own thread
+    t0 = time.monotonic()
+    eng, sub = graph_build.result()
+    sub["waited_s"] = time.monotonic() - t0
+    check(eng.indexes["emb"].use_graph and eng.indexes["emb"]._graph
+          is not None, "HNSW auto on a Disk store did not pick the graph")
+    rows, gq = base[:GRAPH_ROWS], queries[:GRAPH_B]
+    gtruth = exact_topk(dev, gq, rows, MetricType.L2)
+    sub["graph"], _ = run_path(eng, gq, {}, gtruth)
+    sub["graph"]["per_query_us"] = sub["graph"]["search_ms"] * 1e3 / len(gq)
+    out["hnsw_disk"] = sub
+    eng.close()
+    del eng
+    release_device_memory()
+    ivf_ops.set_dispatch_ledger(None)
+    for name, res in out.items():
+        print(f"disk_type {name} " + json.dumps(res), flush=True)
+    return out
+
+
+def phase_disk(dev, base, queries, truth, tmp, graph_build) -> tuple:
+    """Disk and tiered storage at the main rows: DISKANN (2048 cells,
+    nprobe 64) on a local-disk data_dir through Engine, at a resident
+    and the default tiered cache budget; bench.py's tiering mix; the
+    in-place dump and open; then the other index types on Disk stores.
+    Returns (numbers, per-path launches)."""
+    import torch
+
+    (n, d), batch = base.shape, 1024
+    q = queries[:batch]
+    ddir = os.path.join(tmp, "diskann")
+    eng = disk_engine("DISKANN", dict(
+        DISK_PARAMS, training_threshold=2 * n, cache_mb=RESIDENT_MB), ddir)
+    out = ingest_and_build(eng, base)
+    index = eng.indexes["emb"]
+    pops = index.cell_populations()
+    out.update(cap=index._slab_cap(), longest_bucket=int(max(pops)),
+               mean_bucket_len=float(np.mean(pops)),
+               slab_bytes=index._slab_cap() * (d + 12))
+    print("disk_build " + json.dumps(out), flush=True)
+    out["resident"], res = tier_budget(eng, q, truth, RESIDENT_MB)
+    check(out["resident"]["default"]["warm_h2d_bytes_per_search"] == 0,
+          "a warmed resident DISKANN search moved H2D bytes")
+    keys_before = res.keys
+    # the probe-dots kernel at the disk path's shape: the resolved slots
+    # of this batch over the resident pools, against its plain version
+    cache = index._cache
+    probes = coarse_probes(index, q, DISK_PARAMS["nprobe"])
+    slots, pools = cache.acquire(probes, dict(index._gens),
+                                 index._make_fetch(dict(index._gens),
+                                                   index.indexed_count))
+    cache.release()
+    out["kernel_case"] = compare_probe_case(
+        "disk_B1024", torch.from_numpy(np.ascontiguousarray(q)).to(dev),
+        torch.from_numpy(slots).to(dev), pools[0], pools[4])
+    del pools, cache
+    out["tiered"], _ = tier_budget(eng, q, truth, TIERED_MB)
+    check(out["tiered"]["passes"] > 1,
+          "the tiered budget took one pass; expected the multi-pass path")
+    out["mix"] = tiering_mix(eng, queries, TIERED_MB, RESIDENT_MB)
+    rng = np.random.default_rng(12)
+    # tail rows far from every query: they cannot enter a top 10, so the
+    # ids before and after the reopen compare
+    tail = (rng.standard_normal((2048, d)) * 60).astype(np.float32)
+    set_cache_mb(eng, RESIDENT_MB)
+    out["recovery"], eng = disk_recovery(eng, ddir, q, keys_before, tail)
+    out["recovery"]["cap_after"] = eng.indexes["emb"]._slab_cap()
+    eng.close()
+    del eng, index
+    release_device_memory()
+    shutil.rmtree(ddir, ignore_errors=True)
+    out["types"] = disk_other_types(dev, base, q, truth, tmp, graph_build)
+    out["reduced"] = {k: REDUCED[k] for k in ("flat_disk", "hnsw_disk")}
+    paths = {"diskann": {
+        "resident": out["resident"]["default"],
+        "resident_gated": out["resident"]["gated"],
+        "tiered": out["tiered"]["default"],
+        "tiered_gated": out["tiered"]["gated"],
+        "mix": out["mix"], "reopened": out["recovery"]},
+        "disk_types": {
+        "ivfpq": out["types"]["ivfpq_disk"]["gated"],
+        "ivfrabitq": out["types"]["ivfrabitq_disk"]["three_stage"],
+        "flat": out["types"]["flat_disk"]["search"],
+        "hnsw_graph": out["types"]["hnsw_disk"]["graph"]}}
+    return out, paths
+
+
 def profile_search(eng, req, ranges=()) -> dict:
     """Device time by kernel over one search (torch.profiler), the
     device's busy share of the search's wall time, and the device time
@@ -1571,8 +2025,12 @@ def main() -> int:
     print(f"data: {time.monotonic() - t0:.1f}s", flush=True)
     # the HNSW graph (host C++, single-threaded) builds on its own thread
     # while the card works; phase_family reads it last
-    graph_pool = ThreadPoolExecutor(1)
+    disk_tmp = tempfile.mkdtemp(prefix="vearch_chip_disk_")
+    graph_pool = ThreadPoolExecutor(2)
     graph_build = graph_pool.submit(build_graph_engine, base[:GRAPH_ROWS])
+    disk_graph_build = graph_pool.submit(
+        build_disk_graph_engine, base[:GRAPH_ROWS],
+        os.path.join(disk_tmp, "hnsw"))
 
     t0 = time.monotonic()
     phase_kernels(dev)
@@ -1599,13 +2057,21 @@ def main() -> int:
     engine, engine_paths = phase_engine(dev, base, queries)
     print("engine " + json.dumps(engine), flush=True)
     print(f"phase engine: {time.monotonic() - t0:.1f}s", flush=True)
-    t0 = time.monotonic()
     try:
+        t0 = time.monotonic()
         family = phase_family(dev, base, queries, truth, graph_build)
+        print("family " + json.dumps(family), flush=True)
+        print(f"phase family: {time.monotonic() - t0:.1f}s", flush=True)
+        t0 = time.monotonic()
+        disk, disk_paths = phase_disk(dev, base, queries, truth, disk_tmp,
+                                      disk_graph_build)
+        print("disk " + json.dumps(disk), flush=True)
+        print(f"phase disk: {time.monotonic() - t0:.1f}s", flush=True)
     finally:
         graph_pool.shutdown(wait=True, cancel_futures=True)
-    print("family " + json.dumps(family), flush=True)
-    print(f"phase family: {time.monotonic() - t0:.1f}s", flush=True)
+        shutil.rmtree(disk_tmp, ignore_errors=True)
+    paths = dict(family, engine=engine_paths, **disk_paths)
+    dres = disk["kernel_case"]
     kernels = [
         {"name": "int8_blockmax_scan", "route": "cuda",
          "design": "wgmma bf16 (A: int8 rows converted in registers, B: "
@@ -1615,8 +2081,7 @@ def main() -> int:
          "replaces": "vearch_tpu/ops/pallas_kernels.py:201",
          "launches": main_res["launches"]["int8_blockmax_scan"],
          "launches_by_path": launches_by_path(
-             main_res, dict(family, engine=engine_paths),
-             "int8_blockmax_scan"),
+             main_res, paths, "int8_blockmax_scan"),
          "max_abs_err": res["bmax_max_abs_err"], "ms": res["kernel_ms"],
          "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
          "bound_by": res["bound_by"], "library_ms": res["library_ms"]},
@@ -1629,11 +2094,14 @@ def main() -> int:
          "replaces": "vearch_tpu/ops/pallas_kernels.py:54",
          "launches": main_res["probe"]["launches"]["ivf_probe_dots"],
          "launches_by_path": launches_by_path(
-             main_res, dict(family, engine=engine_paths),
-             "ivf_probe_dots"),
+             main_res, paths, "ivf_probe_dots"),
          "max_abs_err": pres["max_abs_err"], "ms": pres["kernel_ms"],
          "plain_ms": pres["plain_ms"], "bound_ms": pres["bound_ms"],
-         "bound_by": pres["bound_by"], "library_ms": pres["library_ms"]},
+         "bound_by": pres["bound_by"], "library_ms": pres["library_ms"],
+         # the DISKANN path's shape: the resident slab pool as buckets
+         "disk_case": {k: dres[k] for k in (
+             "B", "nprobe", "nlist", "cap", "max_abs_err", "kernel_ms",
+             "plain_ms", "library_ms", "bound_ms", "bound_by")}},
     ]
     print("quoted_previous_ms (PERF.md section 6, not measured in this "
           "run) " + json.dumps(QUOTED_PREVIOUS_MS), flush=True)

@@ -154,6 +154,15 @@ def test_registry_resolves_new_types(name):
                                        ("DISKANN_STATIC", "item 7"),
                                        ("FLAT_SHARDED", "item 10")])
 def test_not_ported_types_raise(name, item):
+    """A type the port does not serve raises naming its ROADMAP item;
+    DISKANN and DISKANN_STATIC came with item 7 and now resolve to the
+    reference's class (tests/test_torch_disk.py holds them to it)."""
+    if name not in registry.NOT_PORTED:
+        assert item == "item 7"
+        idx = registry.create_index(pt.IndexParams(name), _store())
+        ref = ref_registry.create_index(rt.IndexParams(name), RefStore(D))
+        assert type(idx).__name__ == type(ref).__name__ == "DiskANNIndex"
+        return
     with pytest.raises(NotImplementedError, match=item):
         registry.create_index(pt.IndexParams(name), _store())
 
@@ -378,7 +387,7 @@ def test_hnsw_graph_matches_reference_graph(ip):
 @pytest.mark.parametrize("metric", ["L2", "InnerProduct", "Cosine"])
 def test_hnsw_scan_mode_matches_reference(metric):
     ref, port, queries = _engines("HNSW", metric, {"efSearch": 48})
-    assert port.indexes["emb"]._graph is None  # "auto" is the scan
+    assert port.indexes["emb"]._graph is None  # "auto" on a memory store
     for params in ({}, {"efSearch": 200}):
         keys = _same(_search(ref, RefRequest, queries, params),
                      _search(port, SearchRequest, queries, params))

@@ -1,6 +1,7 @@
-"""vearch_tpu_torch stands alone: importing every one of its modules pulls
-in neither JAX nor anything of vearch_tpu, and its entry points refuse to
-run on the CPU unless asked to."""
+"""vearch_tpu_torch stands alone: importing every one of its modules, and
+serving a bf16 disk store under DISKANN, pulls in neither JAX, nor
+anything of vearch_tpu, nor ml_dtypes (the GPU machine has none), and its
+entry points refuse to run on the CPU unless asked to."""
 
 import json
 import os
@@ -18,7 +19,8 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "vearch_tpu" or m.startswith("vearch_tpu."))
+             or m == "vearch_tpu" or m.startswith("vearch_tpu.")
+             or m == "ml_dtypes" or m.startswith("ml_dtypes."))
 from vearch_tpu_torch.engine.engine import Engine
 from vearch_tpu_torch.engine.types import (DataType, FieldSchema,
                                            IndexParams, MetricType,
@@ -32,6 +34,18 @@ try:
 except RuntimeError:
     refused = True
 Engine(schema, device="cpu")
+# the disk tier end to end: a bf16 disk store under DISKANN
+import tempfile
+import numpy as np
+disk = TableSchema("d", [FieldSchema(
+    "emb", DataType.VECTOR, dimension=8,
+    index=IndexParams("DISKANN", MetricType.L2,
+                      {"ncentroids": 2, "store_dtype": "bfloat16"}))])
+eng = Engine(disk, device="cpu", data_dir=tempfile.mkdtemp())
+eng.upsert([{"_id": str(i), "emb": [float(i % 5)] * 8} for i in range(64)])
+eng.build_index()
+eng.indexes["emb"].search(np.ones((1, 8), np.float32), 3, None)
+eng.close()
 # the native HNSW graph loads the port's own build, never vearch_tpu's
 import os
 from vearch_tpu_torch.native.hnsw_graph import LIBRARY, HnswGraph
@@ -66,7 +80,15 @@ def test_port_imports_no_jax_and_needs_explicit_cpu():
                 "vearch_tpu_torch.convert",
                 "vearch_tpu_torch.engine.batching",
                 "vearch_tpu_torch.scalar.manager",
-                "vearch_tpu_torch.scalar.indexes"):
+                "vearch_tpu_torch.scalar.indexes",
+                "vearch_tpu_torch.engine.disk_vector",
+                "vearch_tpu_torch.index.disk",
+                "vearch_tpu_torch.index.hbm_cache",
+                "vearch_tpu_torch.index._store_paths",
+                "vearch_tpu_torch.tiering.prefetch",
+                "vearch_tpu_torch.tiering.ram_tier",
+                "vearch_tpu_torch.tiering.readahead",
+                "vearch_tpu_torch.tiering.staging"):
         assert mod in got["modules"]
     assert got["refused"] is True
     assert got["from_ref"] == []

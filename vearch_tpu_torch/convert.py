@@ -4,11 +4,15 @@
 `dump_state()` returns and gives the dict the port's `load_state` takes:
 - IVFPQ and SCANN: numpy `centroids`, `codebooks`, `indexed_count`;
 - IVFFLAT, BINARYIVF and IVFRABITQ: `centroids`, `indexed_count`;
+- DISKANN and DISKANN_STATIC: `centroids`, `indexed_count` (the durable
+  row count of the scan-tier files; the port rebuilds its bucket lists
+  from `assign.i32` up to that count and absorbs the rest);
 - HNSW in graph mode: `graph_blob` (the native graph as it saves
   itself, which the port's copy of the graph loads) and `indexed_count`;
   in scan mode the reference keeps no state ({}).
 Loading re-absorbs the raw rows through the port's own assign/encode/
-quantize path, so both packages then serve the same trained index.
+quantize path (DISKANN: only the rows its files do not hold), so both
+packages then serve the same trained index.
 """
 
 from __future__ import annotations

@@ -19,16 +19,27 @@ Persistence is the reference's segmented format 2 (`dump`, `open`): a
 dump that either package wrote opens in the other, index state passing
 through `convert.index_state_from_reference`.
 
-Not ported yet: disk stores (ROADMAP queue 1 item 7); the accounting,
-flight-recorder, build-job and quality hooks and the per-request dispatch
-capture (item 8); `mesh_serving: on` (item 10).
+Disk tier: a field with `store_type` "Disk" or "RocksDB", or a DISKANN /
+DISKANN_STATIC index, keeps its rows in an mmap'd DiskRawVectorStore
+under `data_dir/disk_<field>` (engine/disk_vector.py; a temporary
+directory without a data_dir). A dump into the engine's own data_dir
+writes no vector segment for such a field: the store's file is the
+payload, and `flush_disk` records its durable row count; a load rolls
+the store back to that count. `tiering_info` gathers the indexes' and
+row caches' tier counters.
+
+Not ported yet: the accounting, flight-recorder, build-job and quality
+hooks and the per-request dispatch capture (ROADMAP queue 1 item 8);
+`mesh_serving: on` (item 10).
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import shutil
+import tempfile
 import threading
 import time
 import uuid
@@ -60,6 +71,8 @@ from vearch_tpu_torch.index.base import VectorIndex
 from vearch_tpu_torch.index.registry import create_index
 from vearch_tpu_torch.ops import perf_model
 from vearch_tpu_torch.ops.distance import score_to_metric
+
+_log = logging.getLogger("vearch_tpu_torch.engine")
 
 # wall-clock epoch of time.monotonic() zero: phase spans carry
 # epoch microseconds while every duration is measured monotonically
@@ -162,15 +175,27 @@ class Engine:
             self._scalar_manager = ScalarIndexManager(schema)
         for f in schema.vector_fields():
             params = f.index or IndexParams()
+            dtype = params.get("store_dtype", "float32")
             store_type = str(params.get("store_type", "MemoryOnly"))
-            if store_type in ("Disk", "RocksDB") or params.index_type.upper() \
-                    in ("DISKANN", "DISKANN_STATIC"):
-                raise NotImplementedError(
-                    "disk stores are not ported yet (ROADMAP queue 1 item 7)")
-            store = RawVectorStore(
-                f.dimension, store_dtype=params.get("store_dtype", "float32"),
-                device=self.device,
-            )
+            disk_index = params.index_type.upper() in (
+                "DISKANN", "DISKANN_STATIC")
+            if store_type in ("Disk", "RocksDB") or disk_index:
+                # disk tier: rows live in an mmap, not in host RAM
+                from vearch_tpu_torch.engine.disk_vector import (
+                    DiskRawVectorStore,
+                )
+
+                base = data_dir or tempfile.mkdtemp(prefix="vearch_disk_")
+                store: RawVectorStore = DiskRawVectorStore(
+                    f.dimension,
+                    directory=os.path.join(base, f"disk_{f.name}"),
+                    store_dtype=dtype,
+                    row_cache_mb=int(params.get("row_cache_mb", 64)),
+                    device=self.device,
+                )
+            else:
+                store = RawVectorStore(f.dimension, store_dtype=dtype,
+                                       device=self.device)
             self.vector_stores[f.name] = store
             self.indexes[f.name] = create_index(params, store)
 
@@ -306,7 +331,10 @@ class Engine:
         resource-limit write guard."""
         total = 0
         for store in self.vector_stores.values():
-            total += store.host_view().nbytes  # used rows, not capacity
+            if getattr(store, "durable_on_disk", False):
+                total += store.memory_usage_bytes()  # page cache, not RSS
+            else:
+                total += store.host_view().nbytes  # used rows, not capacity
         for index in self.indexes.values():
             mirror = getattr(index, "_mirror", None)
             if mirror is not None:
@@ -568,6 +596,28 @@ class Engine:
             mb._thread.join(timeout=60)
         if self._refresh_thread is not None:
             self._refresh_thread.join(timeout=60)
+        # outside _write_lock: an index's close only stops its background
+        # tier workers (prefetchers)
+        for index in self.indexes.values():
+            try:
+                index.close()
+            except Exception as e:
+                _log.warning("index close failed: %s", e)
+
+    def tiering_info(self) -> dict[str, Any] | None:
+        """Tiered-storage summary over the vector fields (each index's
+        tiers, and a disk store's row cache); None when no field serves
+        through the storage tiers."""
+        fields: dict[str, Any] = {}
+        for name, index in self.indexes.items():
+            info = index.tiering_info()
+            row_cache = getattr(self.vector_stores[name], "row_cache", None)
+            if row_cache is not None:
+                info = dict(info or {"kind": "disk_store"})
+                info["row_cache"] = row_cache.stats()
+            if info is not None:
+                fields[name] = info
+        return {"fields": fields} if fields else None
 
     def apply_config(self, cfg: dict[str, Any]) -> dict[str, Any]:
         """Runtime-mutable engine config: refresh_interval_ms,
@@ -1139,7 +1189,7 @@ class Engine:
         return out
 
     def _write_segment(self, snap: dict, dirpath: str, start: int,
-                       end: int) -> dict:
+                       end: int, in_place: bool) -> dict:
         name = f"seg_{start:010d}_{end:010d}"
         final = os.path.join(dirpath, "segments", name)
         tmp = final + ".tmp"
@@ -1161,8 +1211,11 @@ class Engine:
                             for k, v in tsnap["strings"].items()},
             }, f)
         for fname, view in snap["vecs"].items():
-            # the host rows are f32 for every store_dtype (a bf16 store
-            # rounds only on upload), so the file loads without pickle
+            if in_place and getattr(self.vector_stores[fname],
+                                    "durable_on_disk", False):
+                continue  # the store's own mmap is the durable payload
+            # the host rows read as f32 for every store_dtype (a bf16
+            # store widens its bits), so the file loads without pickle
             np.save(os.path.join(tmp, f"vectors_{fname}.npy"),
                     np.asarray(view[start:end], dtype=np.float32))
         os.replace(tmp, final)
@@ -1180,6 +1233,12 @@ class Engine:
         files."""
         os.makedirs(os.path.join(dirpath, "segments"), exist_ok=True)
         count = len(snap["table"]["keys"])
+        in_place = bool(
+            self.data_dir
+            and os.path.commonpath(
+                [os.path.abspath(dirpath), os.path.abspath(self.data_dir)]
+            ) == os.path.abspath(self.data_dir)
+        )
         segs = self._read_manifest(dirpath)
         while segs and segs[-1]["end"] > count:
             segs.pop()  # rewind (restore or truncation): reseal the tail
@@ -1195,10 +1254,17 @@ class Engine:
             sealed = segs[len(segs) - small]["start"]
             del segs[len(segs) - small:]
         if sealed < count:
-            segs.append(self._write_segment(snap, dirpath, sealed, count))
+            segs.append(self._write_segment(snap, dirpath, sealed, count,
+                                            in_place))
         with open(os.path.join(dirpath, "schema.json"), "w") as f:
             json.dump(self.schema.to_dict(), f)
         np.save(os.path.join(dirpath, "bitmap.npy"), snap["bits"])
+        for name, view in snap["vecs"].items():
+            store = self.vector_stores[name]
+            if in_place and getattr(store, "durable_on_disk", False):
+                # a disk store dumping into its own data_dir: msync and
+                # record the durable count instead of copying the file
+                store.flush_disk(n=view.shape[0])
         for name, index in self.indexes.items():
             state = index.dump_state()
             if state:
@@ -1280,11 +1346,15 @@ class Engine:
         self.table.load_from_segments(
             keys, strings, fixed, self.bitmap.valid_mask(len(keys)))
         for name, store in self.vector_stores.items():
-            store.load_parts([
+            paths = [
                 p for s in segs
                 if os.path.exists(p := os.path.join(
                     dirpath, "segments", s["name"], f"vectors_{name}.npy"))
-            ])
+            ]
+            if paths:
+                store.load_parts(paths)
+            else:  # in-place disk store: roll back via its meta barrier
+                store.load(os.path.join(dirpath, f"vectors_{name}.npy"))
 
     @classmethod
     def open(cls, dirpath: str, device=None) -> "Engine":

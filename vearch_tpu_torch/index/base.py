@@ -69,6 +69,16 @@ class VectorIndex(abc.ABC):
         structure. Indexes that search the raw store just advance."""
         self.indexed_count = upto
 
+    def tiering_info(self) -> dict[str, Any] | None:
+        """Tiered-storage summary (per-tier hit/miss/pin counters,
+        residency bytes), None when this index serves entirely from
+        device memory."""
+        return None
+
+    def close(self) -> None:
+        """Release background resources (prefetch workers). Idempotent;
+        a no-op for in-memory indexes."""
+
     def dump_state(self) -> dict[str, Any]:
         """Arrays a dump persists for this index (`Engine.dump` writes
         them to index_<field>.npz); none for an index that re-absorbs

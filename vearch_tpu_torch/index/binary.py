@@ -15,10 +15,12 @@ mirror) — and the raw rows in the store: binary scan -> top r0 -> int8
 rescore -> top r1 -> exact rerank -> top k (`binary_refine_rerank`, tag
 binary_refine_rerank). r0/r1 come from the request, then the index
 params, then `perf_model.refine_depths`. `stage0: "off"` serves the
-int8-only full-scan chain of IVFPQ instead. Not ported yet: the disk
-branch (the engine refuses disk stores, ROADMAP queue 1 item 7), the
-mesh branch (mesh_serving "on" raises, item 10) and int4 mirrors
-(item 3).
+int8-only full-scan chain of IVFPQ instead. On a disk store stages 0
+and 1 run on the device (`binary_refine_candidates`, tag
+binary_refine_scan) and the exact rerank gathers the raw rows on the
+host (`_store_paths.rerank_against_store`), counted as the "disk" path
+of `note_refine_search`. Not ported yet: the mesh branch (mesh_serving
+"on" raises, ROADMAP queue 1 item 10) and int4 mirrors (item 3).
 """
 
 from __future__ import annotations
@@ -27,6 +29,10 @@ import numpy as np
 
 from vearch_tpu_torch.engine.raw_vector import RawVectorStore
 from vearch_tpu_torch.engine.types import IndexParams, MetricType
+from vearch_tpu_torch.index._store_paths import (
+    is_disk_store,
+    rerank_against_store,
+)
 from vearch_tpu_torch.index.int8_mirror import Int8Mirror
 from vearch_tpu_torch.index.ivf import IVFFlatIndex, IVFPQIndex, _host
 from vearch_tpu_torch.index.registry import register_index
@@ -140,6 +146,23 @@ class IVFRaBitQIndex(IVFPQIndex):
         approx8, m_scale, m_vsq = self._mirror.flush()
         valid = to_device_mask(valid_mask, self.indexed_count,
                                planes.shape[0], self.device)
+        if is_disk_store(self.store):
+            # stages 0-1 on the device; the stage-2 rows gathered on the
+            # host through the mmap (the raw base never enters the card)
+            ivf_ops.note_dispatch("binary_refine_scan")
+            _, cand_i = binary_ops.binary_refine_candidates(
+                self._to_device(q), planes, p_scale, p_vsq,
+                approx8, m_scale, m_vsq, valid, r0, r1, metric, topk_mode,
+                self.mirror_storage,
+            )
+            ivf_ops.note_dispatch("rerank")
+            scores, ids = rerank_against_store(
+                self.store, q, cand_i, min(k, int(cand_i.shape[1])),
+                self.metric,
+            )
+            binary_ops.note_refine_search(
+                "disk", self.indexed_count, r0, r1, k, q.shape[0])
+            return self._pad_to_k(_host(scores), _host(ids), k)
         base, base_sqnorm, _ = self.store.device_buffer()
         ivf_ops.note_dispatch("binary_refine_rerank")
         scores, ids = binary_ops.binary_refine_rerank(

@@ -10,9 +10,11 @@ Two serving modes behind the one type (param `graph`):
 - **graph**: the host HNSW graph (native/hnsw_graph.py), exact f32
   scores, deletes and nodes past `indexed_count` masked.
 
-The reference's "auto" picks the graph for a disk store only; disk stores
-are not ported (ROADMAP queue 1 item 7), so "auto" is the scan here.
-`graph: true` forces the graph, `graph: false` the scan.
+"auto" picks the graph for a disk store (engine/disk_vector.py: the scan
+would read the raw rows through host gathers) and the scan otherwise,
+as the reference does. `graph: true` forces the graph, `graph: false`
+the scan. Where the reference's "auto" also needs its native library to
+load, the port builds its own and raises if that fails.
 """
 
 from __future__ import annotations
@@ -26,7 +28,10 @@ import torch
 
 from vearch_tpu_torch.engine.raw_vector import RawVectorStore
 from vearch_tpu_torch.engine.types import IndexParams, MetricType
-from vearch_tpu_torch.index._store_paths import rerank_against_store
+from vearch_tpu_torch.index._store_paths import (
+    is_disk_store,
+    rerank_against_store,
+)
 from vearch_tpu_torch.index.base import VectorIndex
 from vearch_tpu_torch.index.int8_mirror import Int8Mirror
 from vearch_tpu_torch.index.registry import register_index
@@ -48,7 +53,8 @@ class HNSWIndex(VectorIndex):
         )
         self._mirror = Int8Mirror(store.dimension, device=self.device)
         mode = params.get("graph", "auto")
-        self.use_graph = False if mode == "auto" else bool(mode)
+        self.use_graph = is_disk_store(store) if mode == "auto" \
+            else bool(mode)
         self._graph = self._new_graph() if self.use_graph else None
 
     def _new_graph(self) -> HnswGraph:

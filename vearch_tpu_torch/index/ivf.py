@@ -15,7 +15,10 @@
   kernel on a GPU, whatever `probe_kernel` says; on the CPU its plain
   version with "pallas" and the reference's XLA loop with "xla"). Both
   rerank their candidates exactly against the raw store, unless
-  `_exact_rerank_enabled` says no (SCANN's `reordering: false`);
+  `_exact_rerank_enabled` says no (SCANN's `reordering: false`). On a
+  disk store (engine/disk_vector.py) the full scan is never fused with
+  the rerank: the scan selects its candidates on the device and the
+  rerank gathers their raw rows on the host (`_store_paths`);
 - `quantizer_type: hnsw` puts a host HNSW graph over the centroids
   (native/hnsw_graph.py): absorb assigns rows by a graph walk, and the
   probe regime takes its probe cells from the graph (`probes=`), -1
@@ -25,7 +28,7 @@
   overrides.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: mesh serving and mesh training, OPQ, int4 mirrors and disk stores.
+item: mesh serving and mesh training, OPQ and int4 mirrors.
 """
 
 from __future__ import annotations
@@ -37,6 +40,10 @@ import torch
 
 from vearch_tpu_torch.engine.raw_vector import RawVectorStore
 from vearch_tpu_torch.engine.types import IndexParams, MetricType
+from vearch_tpu_torch.index._store_paths import (
+    is_disk_store,
+    rerank_against_store,
+)
 from vearch_tpu_torch.index.base import VectorIndex
 from vearch_tpu_torch.index.int8_mirror import Int8Mirror
 from vearch_tpu_torch.index.registry import register_index
@@ -466,7 +473,7 @@ class IVFPQIndex(_IVFBase):
                     qt, approx8, scale, vsq, valid, max(r, k),
                     metric is MetricType.L2,
                 )
-            elif fused and rerank:
+            elif fused and rerank and not is_disk_store(self.store):
                 base, base_sqnorm, _ = self.store.device_buffer()
                 ivf_ops.note_dispatch("fused_scan_rerank")
                 scores, ids = ivf_ops.int8_scan_rerank(
@@ -519,8 +526,6 @@ class IVFPQIndex(_IVFBase):
 
     def _rerank(self, q: np.ndarray, cand_i: torch.Tensor, k: int
                 ) -> tuple[np.ndarray, np.ndarray]:
-        from vearch_tpu_torch.index._store_paths import rerank_against_store
-
         ivf_ops.note_dispatch("rerank")
         scores, ids = rerank_against_store(
             self.store, q, cand_i, min(k, int(cand_i.shape[1])), self.metric,

@@ -15,8 +15,6 @@ _REGISTRY: dict[str, Type[VectorIndex]] = {}
 #: the reference's index types this port does not serve yet, each with
 #: the ROADMAP queue 1 item that ports it
 NOT_PORTED: dict[str, str] = {
-    "DISKANN": "disk and tiered storage, ROADMAP queue 1 item 7",
-    "DISKANN_STATIC": "disk and tiered storage, ROADMAP queue 1 item 7",
     "FLAT_SHARDED": "multi-device, ROADMAP queue 1 item 10",
 }
 
@@ -31,6 +29,7 @@ def register_index(name: str) -> Callable[[Type[VectorIndex]], Type[VectorIndex]
 
 def _import_builtins() -> None:
     import vearch_tpu_torch.index.binary  # noqa: F401
+    import vearch_tpu_torch.index.disk  # noqa: F401
     import vearch_tpu_torch.index.flat  # noqa: F401
     import vearch_tpu_torch.index.hnsw  # noqa: F401
     import vearch_tpu_torch.index.ivf  # noqa: F401

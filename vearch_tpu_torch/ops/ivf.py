@@ -32,6 +32,13 @@ reranks them exactly against the raw store:
   re-scored at f32.
 - `int8_scan_rerank`: both, the reference's fused default path.
 
+The disk tier (index/disk.py) scans the probed slabs of the HBM bucket
+cache (index/hbm_cache.py) with `cached_bucket_scan` — through the
+probe-dots Hopper kernel on a CUDA tensor — and reranks against
+host-gathered raw rows with `exact_rerank_gathered`. `note_tier_phase`
+records the tier's host-side windows (slab fetch, prefetch scheduling,
+pin recompute) when a phase ledger is installed.
+
 All selections take the lower index first among ties (`stable_topk`),
 which is the `jax.lax.top_k` order.
 """
@@ -71,6 +78,26 @@ def note_dispatch(tag: str) -> None:
     with _ledger_lock:
         if _dispatch_ledger is not None:
             _dispatch_ledger.append(tag)
+
+
+# Optional tier-phase ledger: when a list is installed here, the tiered
+# storage path appends (name, t0, t1) monotonic windows of its host-side
+# work (fetch, prefetch, pin), from whichever thread ran it.
+_tier_phase_ledger: list | None = None
+
+
+def set_tier_phase_ledger(ledger: list | None) -> None:
+    global _tier_phase_ledger
+    with _ledger_lock:
+        _tier_phase_ledger = ledger
+
+
+def note_tier_phase(name: str, t0: float, t1: float) -> None:
+    """Record a host-side window of the tiered-storage serving path
+    (demand slab fetch, prefetch scheduling, pin-set recompute)."""
+    with _ledger_lock:
+        if _tier_phase_ledger is not None:
+            _tier_phase_ledger.append((name, t0, t1))
 
 
 def coarse_dots(queries: torch.Tensor, centroids: torch.Tensor
@@ -342,6 +369,114 @@ def exact_rerank(
                          torch.full_like(scores, NEG_INF))
     top_s, pos = stable_topk(scores, min(k, scores.shape[1]))
     return top_s, torch.gather(cand_ids, 1, pos)
+
+
+def exact_rerank_gathered(
+    queries: torch.Tensor,    # [B, d] f32
+    cand_ids: torch.Tensor,   # [B, r] int32 (-1 padding)
+    cand_vecs: torch.Tensor,  # [B, r, d] f32, host-gathered raw rows
+    k: int,
+    metric: MetricType = MetricType.L2,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact rerank when the raw base lives on disk: the candidate rows
+    were gathered on the host and uploaded as one [B, r, d] tensor, the
+    only H2D traffic the disk tier pays a query batch."""
+    dots = torch.bmm(cand_vecs.float(), queries.float()[:, :, None])[..., 0]
+    vsq = sqnorms(cand_vecs)
+    if metric is MetricType.L2:
+        scores = -(sqnorms(queries)[:, None] - 2.0 * dots + vsq)
+    elif metric is MetricType.COSINE:
+        qn = torch.sqrt(torch.clamp(sqnorms(queries), min=1e-30))[:, None]
+        vn = torch.sqrt(torch.clamp(vsq, min=1e-30))
+        scores = dots / (qn * vn)
+    else:
+        scores = dots
+    scores = torch.where(cand_ids >= 0, scores,
+                         torch.full_like(scores, NEG_INF))
+    top_s, pos = stable_topk(scores, min(k, scores.shape[1]))
+    return top_s, torch.gather(cand_ids, 1, pos)
+
+
+def cached_bucket_scan(
+    queries: torch.Tensor,      # [B, d] f32
+    pool8: torch.Tensor,        # [slots, cap, d] int8 (HBM bucket cache)
+    pool_scale: torch.Tensor,   # [slots, cap] f32 per-row dequant scale
+    pool_vsq: torch.Tensor,     # [slots, cap] f32 ||approx||^2
+    pool_ids: torch.Tensor,     # [slots, cap] int32 docids (-1 padding)
+    probe_slots: torch.Tensor,  # [B, nprobe] int32 cache slot, -1 deferred
+    valid: torch.Tensor,        # [n_pad] bool (docid-indexed)
+    r: int,
+    metric: MetricType = MetricType.L2,
+    pool_lens: torch.Tensor | None = None,  # [slots] int32 live rows
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Probe scan over the HBM bucket cache (the disk tier's search).
+
+    The rows are per-row-scaled int8 approximations of full vectors (no
+    centroid term): score = f(scale * (bf16 q . int8 row)). A slot of -1
+    marks a probe deferred to another pass of a multi-pass resolve; its
+    slab is masked whole. Returns ([B, r] scores, [B, r] int32 docids,
+    -1 where the score is not finite).
+
+    A CUDA tensor takes the probe-dots kernel (`cached_bucket_scan_dots`);
+    a CPU tensor runs the reference's per-probe loop (`_probe_loop`)."""
+    if queries.device.type != "cpu":
+        return cached_bucket_scan_dots(
+            queries, pool8, pool_scale, pool_vsq, pool_ids, probe_slots,
+            valid, r, metric, pool_lens)
+    queries = queries.float()
+    q_sq = sqnorms(queries)
+    qb = queries.to(torch.bfloat16).float()
+    l2 = metric is MetricType.L2
+
+    def step(s):
+        ids = pool_ids[s]  # [B, cap]
+        dot8 = torch.bmm(pool8[s].float(), qb[:, :, None])[..., 0]
+        dots = pool_scale[s] * dot8
+        scores = -(q_sq[:, None] - 2.0 * dots + pool_vsq[s]) if l2 \
+            else dots
+        return _mask_slots(scores, ids, valid), ids
+
+    return _probe_loop(queries, probe_slots, r, step)
+
+
+def cached_bucket_scan_dots(
+    queries, pool8, pool_scale, pool_vsq, pool_ids, probe_slots, valid,
+    r, metric=MetricType.L2, pool_lens=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """`cached_bucket_scan` through `ops/probe_dots.ivf_probe_dots` (the
+    Hopper kernel on a CUDA tensor, its plain version on a CPU one; slots
+    in the place of cells, `pool_lens` letting it skip each slab's
+    padding), then the scale, the L2/IP epilogue, the mask and one
+    stable top-r over the probe-major flattening, which is the
+    reference's per-probe fold (the running list, then the lower slot,
+    wins a tie)."""
+    from vearch_tpu_torch.ops.probe_dots import ivf_probe_dots
+
+    queries = queries.float()
+    b, nprobe, cap = queries.shape[0], probe_slots.shape[1], pool8.shape[1]
+    dot8 = ivf_probe_dots(queries.to(torch.bfloat16).contiguous(),
+                          probe_slots.to(torch.int32).contiguous(), pool8,
+                          pool_lens)  # [B, nprobe, cap]
+    s = torch.clamp(probe_slots, min=0).long()
+    dots = pool_scale[s] * dot8
+    if metric is MetricType.L2:
+        scores = -(sqnorms(queries)[:, None, None] - 2.0 * dots
+                   + pool_vsq[s])
+    else:
+        scores = dots
+    ids = pool_ids[s]  # [B, nprobe, cap]
+    ok = ((probe_slots >= 0)[:, :, None] & (ids >= 0)
+          & valid[torch.clamp(ids, min=0).long()])
+    scores = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
+    top_s, pos = stable_topk(scores.reshape(b, nprobe * cap),
+                             min(r, nprobe * cap))
+    top_i = torch.gather(ids.reshape(b, nprobe * cap), 1, pos)
+    if top_s.shape[1] < r:  # the fold keeps r slots, -inf past the data
+        pad = r - top_s.shape[1]
+        top_s = torch.nn.functional.pad(top_s, (0, pad), value=NEG_INF)
+        top_i = torch.nn.functional.pad(top_i, (0, pad), value=-1)
+    return top_s, torch.where(torch.isfinite(top_s), top_i,
+                              torch.full_like(top_i, -1))
 
 
 def int8_scan_rerank(
