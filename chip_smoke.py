@@ -101,6 +101,47 @@ Phases:
      HNSW "auto" on a Disk store at 20,000 rows (the graph, built on a
      second background thread from the start).
 
+7. Runtime truth (`phase_runtime`):
+   - footprint models against the card's allocator: a DeviceSampler
+     (obs/sampler.py) whose model is an engine's summed
+     `device_footprint_bytes`, its baseline taken with the card emptied
+     before the engine exists, sampled after build and warmup with the
+     card synchronised. Measured for the main path's IVFPQ (f32 store;
+     full scan, then with the probe buckets published) and FLAT here,
+     and, so that no 1M-row engine is built twice, for IVFRABITQ, SCANN
+     and HNSW's scan in their phase_family runs and for DISKANN at the
+     resident budget in phase_disk, and for the int4 IVFPQ in phase 8.
+     Model, allocated, reserved, drift bytes and drift for each; drift
+     must be false for every one (the sampler's tolerance, 64 MB + 0.5 x
+     model), and allocated - baseline - model must lie in
+     [0, UNMODELLED_BOUND_BYTES] for every one (both sides: a model that
+     over-counts fails too);
+   - the flight recorder (installed before the kernels build): the
+     compile events of the engine's build and warmup, then 20 searches
+     through Engine.search at B=1024 and B=1000 (padded to 1024), which
+     must record none; the pad counters against perf_model's model;
+     what the tracking costs a B=1 and a B=8 search (its tracked calls'
+     shape signatures and lookups, timed on the host, beside the
+     search's wall time);
+   - accounting: eight concurrent 128-query callers in two spaces
+     through the scheduler; per-space device_us, queue_wait_us and
+     dispatches; the device_us sum within 10% of the runs' summed wall
+     time; every request's trace["dispatches"] on its documented path;
+   - quality: a QualityMonitor sampling every row of 16 searches (sample
+     rate 1, no decay), its shadow brute_force searches on the card; its
+     recall@10 estimate's Wilson bounds must hold this script's own
+     recall@10 of the same rows; the health snapshot with recon_error.
+8. Storage modes (`phase_storage_modes`), the main path's settings:
+   IVFPQ with an int4 mirror (full scan; search ms and recall@10 at
+   rerank 128 and 512, >= 0.95 at 512; the mirror's payload half of
+   int8's; the peak allocated bytes of one search beside
+   perf_model.scan_peak_bytes; a profile split by INT4_RANGES; TF32 off),
+   IVFPQ with OPQ (build seconds and reconstruction error with and
+   without it; full scan at rerank 512 through the block-max kernel,
+   probe regime at nprobe 64 through the probe-dots kernel, recall@10
+   >= 0.95 in both), IVFRABITQ with an int4 stage-1 tier (three-stage,
+   rerank 256, recall@10 >= 0.95).
+
 Before the last three lines comes each kernel's time before its redesign,
 quoted from PERF.md and labelled so. The last three lines are the card's
 name and power limit, a JSON object with per-kernel numbers measured in
@@ -123,8 +164,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
-PEAK_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth
+from vearch_tpu_torch.ops import perf_model
+
+# the card's published peaks (perf_model's table): dense bf16 tensor-core
+# operations and HBM3 bandwidth of an H100 SXM
+PEAK_BF16_FLOPS = perf_model.PEAK_OPS[perf_model.DEFAULT_CHIP]["bf16"]
+PEAK_BYTES = perf_model.PEAK_BYTES_PER_S[perf_model.DEFAULT_CHIP]
 SCORE_TOL = (1e-5, 1e-4)  # (rtol, atol) for "tied" f32 candidate scores
 BENCH_PARAMS = {"rerank": 128}  # bench.py's search request
 GATED_PARAMS = {"rerank": 512}  # the depth the recall gate is held at
@@ -849,11 +894,14 @@ def family_rabitq(dev, base, queries, truth) -> dict:
     from vearch_tpu_torch.ops import binary_scan as bs
 
     n, d = base.shape
+    fp = Footprint()
     eng = family_engine("IVFRABITQ", "L2", {
         "ncentroids": 2048, "nprobe": 64, "train_iters": 8,
         "training_threshold": 2 * n, "store_dtype": "bfloat16"})
     out = ingest_and_build(eng, base)
     index = eng.indexes["emb"]
+    eng.warmup([1024])
+    out["footprint"] = fp.measure("IVFRABITQ", eng)
     rows0 = bs.refine_stage_rows()
     auto, res = run_path(eng, queries, {"rerank": 256}, truth)
     rows1 = bs.refine_stage_rows()
@@ -908,6 +956,7 @@ def family_scann(dev, base, queries) -> dict:
 
     n, _ = base.shape
     truth = exact_topk(dev, queries, base, MetricType.INNER_PRODUCT)
+    fp = Footprint()
     eng = family_engine("SCANN", "InnerProduct", {
         "ncentroids": 2048, "nsubvector": 32, "nprobe": 64,
         "train_iters": 8, "training_threshold": 2 * n,
@@ -926,6 +975,8 @@ def family_scann(dev, base, queries) -> dict:
 
         setattr(index, name, timed_hook)
     out = ingest_and_build(eng, base)
+    eng.warmup([1024])
+    out["footprint"] = fp.measure("SCANN", eng)
     out["anisotropic_train_s"] = spent["_fit_codebooks"]
     out["anisotropic_encode_s"] = spent["_encode_rows"]
     out["eta"] = index.eta
@@ -949,11 +1000,14 @@ def family_scann(dev, base, queries) -> dict:
 def family_hnsw_scan(dev, base, queries, truth) -> dict:
     """HNSW in scan mode (the port's "auto"), full width."""
     n, _ = base.shape
+    fp = Footprint()
     eng = family_engine("HNSW", "L2", {"nlinks": 32, "efSearch": 64,
                                        "efConstruction": 160,
                                        "store_dtype": "bfloat16"})
     check(eng.indexes["emb"]._graph is None, "HNSW auto did not scan")
     out = ingest_and_build(eng, base)
+    eng.warmup([1024])
+    out["footprint"] = fp.measure("HNSW scan", eng)
     out["scan"], res = run_path(eng, queries, {}, truth)
     check(out["scan"]["launches"]["int8_blockmax_scan"] > 0,
           "HNSW scan mode never launched the block-max kernel")
@@ -1500,8 +1554,6 @@ def build_disk_graph_engine(rows, data_dir) -> tuple:
 
 
 def h2d_total() -> int:
-    from vearch_tpu_torch.ops import perf_model
-
     return perf_model.h2d_bytes_total()
 
 
@@ -1836,6 +1888,7 @@ def phase_disk(dev, base, queries, truth, tmp, graph_build) -> tuple:
     (n, d), batch = base.shape, 1024
     q = queries[:batch]
     ddir = os.path.join(tmp, "diskann")
+    fp = Footprint()
     eng = disk_engine("DISKANN", dict(
         DISK_PARAMS, training_threshold=2 * n, cache_mb=RESIDENT_MB), ddir)
     out = ingest_and_build(eng, base)
@@ -1846,6 +1899,7 @@ def phase_disk(dev, base, queries, truth, tmp, graph_build) -> tuple:
                slab_bytes=index._slab_cap() * (d + 12))
     print("disk_build " + json.dumps(out), flush=True)
     out["resident"], res = tier_budget(eng, q, truth, RESIDENT_MB)
+    out["footprint"] = fp.measure("DISKANN (resident slab pool)", eng)
     check(out["resident"]["default"]["warm_h2d_bytes_per_search"] == 0,
           "a warmed resident DISKANN search moved H2D bytes")
     keys_before = res.keys
@@ -1889,6 +1943,462 @@ def phase_disk(dev, base, queries, truth, tmp, graph_build) -> tuple:
         "ivfrabitq": out["types"]["ivfrabitq_disk"]["three_stage"],
         "flat": out["types"]["flat_disk"]["search"],
         "hnsw_graph": out["types"]["hnsw_disk"]["graph"]}}
+    return out, paths
+
+
+# -- runtime truth: footprint models against the caching allocator ----------
+
+FOOTPRINTS: list = []  # one row per Footprint.measure, in run order
+# what a footprint model may leave out: the caching allocator rounds each
+# tensor up to 512-byte blocks (448 B over the 8 rows of a full run on
+# the H100), and one run left 0.8 MB unattributed; a model short by more,
+# or over the allocation at all, fails
+UNMODELLED_BOUND_BYTES = 2 << 20
+
+
+class Footprint:
+    """The device sampler around one engine's life: its baseline is what
+    the caching allocator holds before the engine exists (the card
+    emptied first), its model the engine's summed
+    `device_footprint_bytes`; `measure` samples after a build and a
+    warmup, with the card synchronised and no search in flight."""
+
+    def __init__(self):
+        import torch
+
+        from vearch_tpu_torch.obs.sampler import DeviceSampler
+
+        release_device_memory()
+        torch.cuda.synchronize()
+        self.engine = None
+        self.sampler = DeviceSampler(
+            lambda: (0 if self.engine is None
+                     else self.engine.device_footprint_bytes()))
+        self.sampler.sample_now()
+
+    def measure(self, label, eng) -> dict:
+        import torch
+
+        from vearch_tpu_torch.obs.sampler import measure_reserved_bytes
+
+        torch.cuda.synchronize()
+        self.engine = eng
+        try:
+            snap = self.sampler.sample_now()
+        finally:
+            self.engine = None
+        row = {"index": label, "model_bytes": snap["model_per_device_bytes"],
+               "allocated_bytes": snap["devices"]["cuda:0"],
+               "baseline_bytes": snap["baseline_per_device_bytes"]["cuda:0"],
+               "reserved_bytes": measure_reserved_bytes()["cuda:0"],
+               "drift_bytes": snap["drift_bytes"], "drift": snap["drift"]}
+        row["unmodelled_bytes"] = (row["allocated_bytes"]
+                                   - row["baseline_bytes"]
+                                   - row["model_bytes"])
+        FOOTPRINTS.append(row)
+        print("footprint " + json.dumps(row), flush=True)
+        return row
+
+
+def main_engine(params, store_dtype="bfloat16", name="bench"):
+    """An engine of the main path's index settings (IVFPQ, 2048
+    centroids, 32 subvectors, 8 training iterations), with `params`
+    added."""
+    return family_engine("IVFPQ", "L2", dict({
+        "ncentroids": 2048, "nsubvector": 32, "train_iters": 8,
+        "training_threshold": 10 ** 9, "store_dtype": store_dtype},
+        **params))
+
+
+def runtime_flight(eng, queries, events) -> dict:
+    """The compile events of the engine's build and warmup, then 20
+    main-path searches through Engine.search (10 at B=1024, 10 at
+    B=1000, padded to 1024): no new compile event may follow the
+    warmup; the pad counters against perf_model's model."""
+    from vearch_tpu_torch.engine.engine import SearchRequest
+    from vearch_tpu_torch.obs.flight_recorder import RECORDER
+
+    total0, pad0 = RECORDER.total(), eng.pad_waste_bytes
+    rows0 = (eng.pad_real_rows, eng.pad_padded_rows)
+    for b in (1024, 1000):
+        for _ in range(10):
+            eng.search(SearchRequest(vectors={"emb": queries[:b]}, k=10,
+                                     include_fields=[]))
+    d = queries.shape[1]
+    out = {"events_in_build_and_warmup": events,
+           "recorder_total_before": total0,
+           "recorder_total_after": RECORDER.total(),
+           "warmup_compiles": RECORDER.warmup_compiles,
+           "pad_real_rows": eng.pad_real_rows - rows0[0],
+           "pad_padded_rows": eng.pad_padded_rows - rows0[1],
+           "pad_waste_bytes": eng.pad_waste_bytes - pad0,
+           "padding_waste_bytes_model": 10 * perf_model.padding_waste_bytes(
+               1000, 1024, d)}
+    print("runtime_flight " + json.dumps(out), flush=True)
+    check(out["recorder_total_after"] == total0,
+          f"compile events after warmup: {RECORDER.events()[-5:]}")
+    check(out["pad_waste_bytes"] == out["padding_waste_bytes_model"],
+          "pad waste bytes differ from perf_model's")
+    return out
+
+
+def runtime_tracking_cost(eng, queries, reps=200, iters=20) -> dict:
+    """What program tracking (perf_model.register_op) adds to a small
+    search through Engine.search: the tracked calls of one B=1 and one
+    B=8 search, and the host time of their shape signatures and set
+    lookups under the lock (all the wrapper does once a signature is
+    known), beside the search's median wall time."""
+    from vearch_tpu_torch.engine.engine import SearchRequest
+    from vearch_tpu_torch.obs.flight_recorder import RECORDER
+
+    sig_of, out = perf_model.shape_signature, {}
+    for b in (1, 8):
+        req = SearchRequest(vectors={"emb": queries[:b]}, k=10,
+                            include_fields=[])
+        with RECORDER.warmup():  # not the serving warmup's batch sizes
+            eng.search(req)
+        walls = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            eng.search(req)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        calls = []
+
+        def recording(args, kwargs):
+            calls.append((args, kwargs))
+            return sig_of(args, kwargs)
+
+        perf_model.shape_signature = recording
+        try:
+            eng.search(req)
+        finally:
+            perf_model.shape_signature = sig_of
+        seen = {sig_of(a, kw) for a, kw in calls}
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for a, kw in calls:
+                sig = sig_of(a, kw)
+                with perf_model._programs_lock:
+                    _ = sig in seen
+        us = (time.perf_counter() - t0) * 1e6 / reps
+        ms = float(np.median(walls))
+        out[f"b{b}"] = {"tracked_calls": len(calls), "tracking_us": us,
+                        "search_ms": ms, "share": us / 1e3 / ms}
+    print("runtime_tracking " + json.dumps(out), flush=True)
+    return out
+
+
+def runtime_accounting(eng, queries, threads=8, rows=128) -> dict:
+    """Eight concurrent 128-query callers in two spaces through the batch
+    scheduler: per-space device_us, queue_wait_us and dispatches; the
+    apportioned device_us sum against the summed wall time of the runs;
+    each request's trace["dispatches"] mapped to its documented path."""
+    import threading
+
+    from vearch_tpu_torch.engine.engine import SearchRequest
+    from vearch_tpu_torch.obs import accounting as acct
+
+    walls, lock = [], threading.Lock()
+    inner = eng._search_direct
+
+    def timed(req):
+        t0 = time.monotonic()
+        try:
+            return inner(req)
+        finally:
+            with lock:
+                walls.append((len(next(iter(req.vectors.values()))),
+                              time.monotonic() - t0))
+
+    accountant = acct.install()
+    accountant.reset()
+    eng._search_direct = timed
+    traces = [{} for _ in range(threads)]
+    start = threading.Barrier(threads)
+    errors = []
+
+    def caller(i):
+        try:
+            with acct.billed("db/a" if i % 2 else "db/b"):
+                start.wait()
+                eng.search(SearchRequest(
+                    vectors={"emb": queries[i * rows:(i + 1) * rows]},
+                    k=10, include_fields=[], trace=traces[i]))
+        except Exception as e:  # reported by the check below
+            errors.append(repr(e))
+
+    pool = [threading.Thread(target=caller, args=(i,))
+            for i in range(threads)]
+    for t in pool:
+        t.start()
+    for t in pool:
+        t.join(timeout=300)
+    del eng._search_direct
+    check(not errors and not any(t.is_alive() for t in pool),
+          f"scheduled callers failed: {errors}")
+    snap = accountant.snapshot()["spaces"]
+    spaces = {sp: {m: snap[sp][m] for m in
+                   ("device_us", "queue_wait_us", "dispatches")}
+              for sp in ("db/a", "db/b")}
+    device_us = sum(v["device_us"] for v in spaces.values())
+    wall_us = sum(w for _, w in walls) * 1e6
+    paths = [perf_model.path_for_dispatches(t.get("dispatches", []))
+             for t in traces]
+    out = {"spaces": spaces, "runs": len(walls),
+           "grouped_runs": sum(r > rows for r, _ in walls),
+           "device_us_sum": device_us, "runs_wall_us": wall_us,
+           "paths": sorted(set(map(str, paths))),
+           "system_device_us": snap.get(acct.SYSTEM_SPACE, {}).get(
+               "device_us", 0)}
+    print("runtime_accounting " + json.dumps(out), flush=True)
+    check(abs(device_us - wall_us) <= 0.1 * wall_us,
+          "apportioned device_us off the runs' wall time by more than 10%")
+    check(all(p == "ivfpq_full_fused" for p in paths),
+          f"traced dispatches left the documented path: {paths}")
+    # a grouped run's discrete events bill to its head's space
+    check(sum(v["dispatches"] for v in spaces.values()) == len(walls),
+          "dispatches billed differ from the runs")
+    check(all(v["device_us"] > 0 and v["queue_wait_us"] > 0
+              for v in spaces.values()), "a space was not billed")
+    accountant.reset()
+    return out
+
+
+def runtime_quality(dev, eng, base, queries, searches=16, rows=16) -> dict:
+    """A QualityMonitor sampling every row of 16 searches of the engine
+    (sample rate 1, no decay): its shadow brute_force searches run on the
+    card; its recall estimate against this script's own recall@10 of the
+    same served rows (exact f32 oracle), which must lie within the
+    monitor's Wilson bounds; the health numbers with recon_error."""
+    from vearch_tpu_torch.engine.engine import SearchRequest
+    from vearch_tpu_torch.engine.types import MetricType
+    from vearch_tpu_torch.obs.quality import QualityMonitor
+
+    mon = QualityMonitor(get_engines=lambda: {0: eng}, sample_rate=1.0,
+                         decay=0.0, min_samples=searches,
+                         queue_cap=searches * rows)
+    q = queries[:searches * rows]
+    truth = exact_topk(dev, q, base, MetricType.L2)
+    served = []
+    t0 = time.monotonic()
+    for i in range(searches):
+        qi = q[i * rows:(i + 1) * rows]
+        res = eng.search(SearchRequest(vectors={"emb": qi}, k=10,
+                                       include_fields=[]))
+        mon.observe_search(0, "db/main", {"emb": qi}, 10, res,
+                           eng.data_version)
+        served += [[int(it.key[1:]) for it in r.items] for r in res]
+    t_serve = time.monotonic() - t0
+    t0 = time.monotonic()
+    executed = mon.run_pending()
+    t_shadow = time.monotonic() - t0
+    own = sum(len(set(g) & set(t.tolist()))
+              for g, t in zip(served, truth)) / truth.size
+    rec = mon.recall_snapshot()
+    est = rec["spaces"]["db/main"]["recall"]["10"]
+    health = mon.collect_health()[0]
+    out = {"searches": searches, "rows": rows, "shadow_jobs": executed,
+           "serve_s": t_serve, "shadow_s": t_shadow,
+           "own_recall_at_10": own, "recall_snapshot": rec,
+           "health_snapshot": mon.health_snapshot(),
+           "recon_error": health["fields"]["emb"]["recon_error"]}
+    print("runtime_quality " + json.dumps(out), flush=True)
+    check(executed == searches * rows and
+          rec["counters"]["executed"] == executed,
+          f"shadow jobs executed {executed}")
+    check(est["wilson_low"] <= own <= est["wilson_high"],
+          f"own recall {own} outside the monitor's Wilson bounds {est}")
+    return out
+
+
+def phase_runtime(dev, base, queries, events) -> tuple:
+    """Runtime truth on the card: the main path's index (f32 store, so
+    the quality monitor's brute_force truth is this script's exact f32
+    oracle) under the device sampler, the flight recorder, the
+    accountant and the quality monitor; FLAT under the sampler (main
+    prints the footprint table of every index type after phase 8).
+    Returns (numbers, per-path launches)."""
+    from vearch_tpu_torch.obs.flight_recorder import RECORDER
+
+    out = {}
+    fp = Footprint()
+    eng = main_engine({"warmup_batches": [1000, 1024], "scan_mode": "full"},
+                      store_dtype="float32")
+    mark = len(events)
+    out["ivfpq"] = ingest_and_build(eng, base)
+    index = eng.indexes["emb"]
+    out["ivfpq"]["recon_error"] = index.reconstruction_error()
+    out["ivfpq"]["device_footprint_bytes"] = eng.device_footprint_bytes()
+    out["ivfpq"]["mirror_device_bytes"] = index._mirror.device_bytes()
+    fp.measure("IVFPQ int8 (full)", eng)
+    reset_launches()
+    out["flight"] = runtime_flight(eng, queries, events[mark:])
+    out["flight"]["launches"] = read_launches()
+    check(out["flight"]["launches"]["int8_blockmax_scan"] > 0,
+          "the runtime engine's searches never launched the block-max "
+          "kernel")
+    out["tracking"] = runtime_tracking_cost(eng, queries)
+    reset_launches()
+    out["accounting"] = runtime_accounting(eng, queries)
+    out["accounting"]["launches"] = read_launches()
+    out["quality"] = runtime_quality(dev, eng, base, queries)
+    # the probe regime published: one probe search, an explicit warmup
+    # pass of that regime
+    with RECORDER.warmup():
+        eng.search(family_request(queries, PROBE_PARAMS))
+    out["ivfpq"]["bucket_bytes"] = sum(
+        t.numel() * t.element_size() for t in (
+            index._bucket_resid8, index._bucket_scale, index._bucket_vsq,
+            index._bucket_ids, index._bucket_lens))
+    fp.measure("IVFPQ int8 (full and probe published)", eng)
+    eng.close()
+    del eng, index
+    fp = Footprint()
+    eng = family_engine("FLAT", "L2", {"store_dtype": "bfloat16",
+                                       "warmup_batches": [1024]})
+    out["flat"] = ingest_and_build(eng, base)
+    fp.measure("FLAT", eng)
+    eng.close()
+    del eng
+    release_device_memory()
+    paths = {"runtime": {"flight": out["flight"],
+                         "scheduled": out["accounting"]}}
+    return out, paths
+
+
+def footprint_table() -> list:
+    """Every footprint measured in this run (phase_family, phase_disk,
+    phase_runtime, phase_storage_modes); none may have drifted."""
+    print("footprint_table " + json.dumps(FOOTPRINTS), flush=True)
+    for row in FOOTPRINTS:
+        check(not row["drift"], f"device bytes drifted from the model: "
+              f"{row}")
+        check(0 <= row["unmodelled_bytes"] <= UNMODELLED_BOUND_BYTES,
+              f"allocated - baseline - model outside [0, "
+              f"{UNMODELLED_BOUND_BYTES}] B: {row}")
+    check(len(FOOTPRINTS) == 8, f"{len(FOOTPRINTS)} footprints measured")
+    return list(FOOTPRINTS)
+
+
+def phase_storage_modes(dev, base, queries, truth, ivfpq) -> tuple:
+    """The build side's last storage modes at the main path's rows and
+    settings (bf16 store): IVFPQ with an int4 mirror (full scan), IVFPQ
+    with OPQ (full scan and probe regime), IVFRABITQ with an int4 stage-1
+    tier. `ivfpq` holds phase_runtime's plain IVFPQ numbers. Returns
+    (numbers, per-path launches)."""
+    import torch
+
+    from vearch_tpu_torch.ops import binary_scan as bs
+    from vearch_tpu_torch.ops import ivf as ivf_ops
+
+    (n, d), batch = base.shape, 1024
+    q = queries[:batch]
+    out = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    print(f"storage: torch.backends.cuda.matmul.allow_tf32 = "
+          f"{out['allow_tf32']}", flush=True)
+    check(not out["allow_tf32"], "TF32 is on: the int4 scan's f32 "
+          "products would be rounded")
+
+    # -- IVFPQ, int4 mirror ------------------------------------------------
+    fp = Footprint()
+    eng = main_engine({"mirror_dtype": "int4", "scan_mode": "full",
+                       "warmup_batches": [1024]})
+    int4 = ingest_and_build(eng, base)
+    index = eng.indexes["emb"]
+    fp.measure("IVFPQ int4 (full)", eng)
+    cap = index._mirror._h8.shape[0]
+    int4.update(
+        device_footprint_bytes=eng.device_footprint_bytes(),
+        mirror_device_bytes=index._mirror.device_bytes(),
+        int8_mirror_device_bytes=ivfpq["mirror_device_bytes"],
+        mirror_payload_bytes=cap * index._mirror._h8.shape[1],
+        int8_mirror_payload_bytes=cap * d)
+    check(2 * int4["mirror_payload_bytes"]
+          == int4["int8_mirror_payload_bytes"],
+          "the int4 mirror's payload is not half of int8's")
+    check(int4["mirror_device_bytes"] == perf_model.mirror_footprint_bytes(
+        cap, d, "int4"), "int4 mirror bytes differ from the model")
+    for depth in (128, 512):
+        int4[f"rerank{depth}"], _ = run_path(eng, q, {"rerank": depth},
+                                             truth)
+        check(int4[f"rerank{depth}"]["tags"] == ["fused_scan_rerank"],
+              f"int4 tags {int4[f'rerank{depth}']['tags']}")
+    req = family_request(q, GATED_PARAMS)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng.search(req)
+    torch.cuda.synchronize()
+    int4["search_peak_bytes"] = torch.cuda.max_memory_allocated() - before
+    int4["scan_peak_bytes_model"] = perf_model.scan_peak_bytes(
+        batch, cap, d, 512, "xla_full")
+    int4["profile"] = profile_search(eng, req, ivf_ops.INT4_RANGES)
+    out["ivfpq_int4"] = int4
+    print("storage_int4 " + json.dumps(int4), flush=True)
+    check(int4["rerank512"]["recall_at_10"] >= 0.95,
+          f"int4 recall@10 {int4['rerank512']['recall_at_10']} < 0.95 at "
+          "rerank 512")
+    eng.close()
+    del eng, index
+    release_device_memory()
+
+    # -- IVFPQ with OPQ ------------------------------------------------------
+    eng = main_engine({"opq": True})
+    opq = ingest_and_build(eng, base)
+    index = eng.indexes["emb"]
+    R = index._opq_R
+    opq.update(opq_iters=index.opq_iters,
+               recon_error=index.reconstruction_error(),
+               recon_error_without=ivfpq["recon_error"],
+               build_s_without=ivfpq["build_s"],
+               orthonormality=float(np.abs(R.T @ R - np.eye(d)).max()))
+    opq["full"], _ = run_path(eng, q, GATED_PARAMS, truth)
+    check(opq["full"]["launches"]["int8_blockmax_scan"] > 0,
+          "the OPQ full scan never launched the block-max kernel")
+    t0 = time.monotonic()
+    index._publish()
+    torch.cuda.synchronize()
+    opq["publish_s"] = time.monotonic() - t0
+    opq["probe"], _ = run_path(eng, q, dict(PROBE_PARAMS, **GATED_PARAMS),
+                               truth)
+    check(opq["probe"]["launches"]["ivf_probe_dots"] > 0,
+          "the OPQ probe regime never launched the probe-dots kernel")
+    out["ivfpq_opq"] = opq
+    print("storage_opq " + json.dumps(opq), flush=True)
+    check(opq["orthonormality"] < 1e-4, "OPQ rotation is not orthonormal")
+    for regime in ("full", "probe"):
+        check(opq[regime]["recall_at_10"] >= 0.95,
+              f"OPQ {regime} recall@10 {opq[regime]['recall_at_10']} "
+              "< 0.95")
+    eng.close()
+    del eng, index
+    release_device_memory()
+
+    # -- IVFRABITQ with an int4 stage-1 tier ----------------------------------
+    eng = family_engine("IVFRABITQ", "L2", {
+        "ncentroids": 2048, "nprobe": 64, "train_iters": 8,
+        "training_threshold": 2 * n, "store_dtype": "bfloat16",
+        "mirror_dtype": "int4"})
+    rabitq = ingest_and_build(eng, base)
+    counts0 = bs.refine_search_counts()
+    rabitq["three_stage"], _ = run_path(eng, q, {"rerank": 256}, truth)
+    rabitq["refine_search_counts"] = {
+        k: v - counts0[k] for k, v in bs.refine_search_counts().items()}
+    check(rabitq["three_stage"]["tags"] == ["binary_refine_rerank"],
+          f"IVFRABITQ int4 tags {rabitq['three_stage']['tags']}")
+    out["ivfrabitq_int4"] = rabitq
+    print("storage_rabitq_int4 " + json.dumps(rabitq), flush=True)
+    check(rabitq["three_stage"]["recall_at_10"] >= 0.95,
+          f"IVFRABITQ int4 recall@10 "
+          f"{rabitq['three_stage']['recall_at_10']} < 0.95 at rerank 256")
+    eng.close()
+    del eng
+    release_device_memory()
+    paths = {"storage": {
+        "int4_rerank128": int4["rerank128"],
+        "int4_rerank512": int4["rerank512"],
+        "opq_full": opq["full"], "opq_probe": opq["probe"],
+        "ivfrabitq_int4": rabitq["three_stage"]}}
     return out, paths
 
 
@@ -2014,11 +2524,28 @@ def main() -> int:
         return 2
     from vearch_tpu_torch.ops.ivf import coarse_dots, select_probes
 
+    from vearch_tpu_torch.obs import flight_recorder
+
     dev = torch.device("cuda")
     card = nvidia_smi()
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
-    build_all()
+    # the flight recorder hears every compile event (library builds, new
+    # launch shapes); this run also keeps each one, to print them
+    recorder = flight_recorder.install()
+    events: list = []
+
+    def observe(program, sig, ms):
+        events.append({"program": program, "signature": sig, "ms": ms,
+                       "in_warmup": recorder.in_warmup()})
+        recorder.on_compile(program, sig, ms)
+
+    perf_model.set_compile_observer(observe)
+    with recorder.warmup():  # the builds at start are expected
+        build_all()
+    print("build_events " + json.dumps(
+        [e for e in events if e["program"].startswith("build.")]),
+        flush=True)
 
     t0 = time.monotonic()
     base, queries = build_data()
@@ -2070,7 +2597,18 @@ def main() -> int:
     finally:
         graph_pool.shutdown(wait=True, cancel_futures=True)
         shutil.rmtree(disk_tmp, ignore_errors=True)
-    paths = dict(family, engine=engine_paths, **disk_paths)
+    t0 = time.monotonic()
+    runtime, runtime_paths = phase_runtime(dev, base, queries, events)
+    print("runtime " + json.dumps(runtime), flush=True)
+    print(f"phase runtime: {time.monotonic() - t0:.1f}s", flush=True)
+    t0 = time.monotonic()
+    storage, storage_paths = phase_storage_modes(dev, base, queries, truth,
+                                                 runtime["ivfpq"])
+    print("storage " + json.dumps(storage), flush=True)
+    print(f"phase storage_modes: {time.monotonic() - t0:.1f}s", flush=True)
+    footprint_table()
+    paths = dict(family, engine=engine_paths, **disk_paths, **runtime_paths,
+                 **storage_paths)
     dres = disk["kernel_case"]
     kernels = [
         {"name": "int8_blockmax_scan", "route": "cuda",

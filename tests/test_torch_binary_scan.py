@@ -29,6 +29,7 @@ import torch  # noqa: E402
 from vearch_tpu.engine.types import MetricType as RefMetric  # noqa: E402
 from vearch_tpu.index.int8_mirror import Int8Mirror as RefMirror  # noqa: E402
 from vearch_tpu.index.int8_mirror import quantize_rows  # noqa: E402
+from vearch_tpu.index.int8_mirror import quantize_rows_int4  # noqa: E402
 from vearch_tpu.ops import binary_scan as ref_bin  # noqa: E402
 from vearch_tpu.ops import ivf as ref_ivf  # noqa: E402
 from vearch_tpu.ops import perf_model as ref_perf  # noqa: E402
@@ -79,8 +80,19 @@ def test_bit_plane_mirror_flush_byte_equal(d):
 
 
 def test_int4_mirror_is_refused():
-    with pytest.raises(NotImplementedError, match="item 3"):
-        Int8Mirror(64, "int4", "cpu")
+    """The int4 mirror is served now: an odd dimension is still refused,
+    and an even one flushes the reference's bytes."""
+    with pytest.raises(ValueError, match="even"):
+        Int8Mirror(63, "int4", "cpu")
+    rng = np.random.default_rng(64)
+    ref, port = RefMirror(64, storage="int4"), Int8Mirror(64, "int4", "cpu")
+    for n in (700, 900):
+        rows = rng.standard_normal((n, 64)).astype(np.float32)
+        ref.append(rows)
+        port.append(rows)
+    for want, got in zip(ref.flush(), port.flush()):
+        assert got.numpy().tobytes() == np.asarray(want).tobytes()
+    assert port.device_bytes() == ref.device_bytes()
 
 
 @pytest.mark.parametrize("k", [1, 10, 13, 64, 100, 1000])
@@ -222,10 +234,19 @@ def test_binary_refine_rerank_matches_reference(d, metric, seed, r0, r1):
 
 
 def test_int4_stage1_is_refused():
-    arrays = _chain_case(64, "L2", 15)[:8]
-    with pytest.raises(NotImplementedError, match="item 3"):
-        port_bin.binary_refine_candidates(*(_t(a) for a in arrays), 512, 96,
-                                          storage="int4")
+    """Stage 1 over an int4 mirror is served now: equal to the
+    reference's on the same packed rows."""
+    arrays = list(_chain_case(64, "L2", 15)[:8])
+    raw = arrays[4].astype(np.float32) * arrays[5][:, None]
+    packed, m_scale, m_vsq = quantize_rows_int4(raw)
+    arrays[4:7] = packed, m_scale, m_vsq
+    want = ref_bin.binary_refine_candidates(
+        *(jnp.asarray(a) for a in arrays), 512, 96, RefMetric.L2,
+        "blockmax", "int4")
+    got = port_bin.binary_refine_candidates(
+        *(_t(a) for a in arrays), 512, 96, MetricType.L2, "blockmax",
+        "int4")
+    _same(want, got)
 
 
 def test_refine_counters_count_rows_per_stage():

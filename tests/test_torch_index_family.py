@@ -222,9 +222,10 @@ def test_ivfrabitq_stage0_off_matches_reference(metric):
 
 
 def test_ivfrabitq_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 3"):
-        Engine(_schema(pt, "IVFRABITQ", "L2", {"mirror_dtype": "int4"}),
-               device="cpu")
+    # int4 mirrors are served now (tests/test_torch_storage_modes.py)
+    eng = Engine(_schema(pt, "IVFRABITQ", "L2", {"mirror_dtype": "int4"}),
+                 device="cpu")
+    assert eng.indexes["emb"]._mirror.storage == "int4"
     ref, port, queries = _engines("IVFRABITQ", "L2")
     with pytest.raises(NotImplementedError, match="item 10"):
         _search(port, SearchRequest, queries, {"mesh_serving": "on"})

@@ -1,7 +1,9 @@
-"""vearch_tpu_torch stands alone: importing every one of its modules, and
-serving a bf16 disk store under DISKANN, pulls in neither JAX, nor
-anything of vearch_tpu, nor ml_dtypes (the GPU machine has none), and its
-entry points refuse to run on the CPU unless asked to."""
+"""vearch_tpu_torch stands alone: importing every one of its modules,
+serving a bf16 disk store under DISKANN, and serving an int4-mirror and
+an OPQ IVFPQ index under the runtime layer (accountant, flight recorder,
+quality monitor, device sampler) pulls in neither JAX, nor anything of
+vearch_tpu, nor ml_dtypes (the GPU machine has none), and its entry
+points refuse to run on the CPU unless asked to."""
 
 import json
 import os
@@ -46,6 +48,31 @@ eng.upsert([{"_id": str(i), "emb": [float(i % 5)] * 8} for i in range(64)])
 eng.build_index()
 eng.indexes["emb"].search(np.ones((1, 8), np.float32), 3, None)
 eng.close()
+# the storage modes under the runtime layer
+from vearch_tpu_torch.engine.engine import SearchRequest
+from vearch_tpu_torch.obs import accounting, flight_recorder, quality, sampler
+accounting.install()
+flight_recorder.install()
+for extra in ({"mirror_dtype": "int4"}, {"opq": True, "opq_iters": 1}):
+    s2 = TableSchema("o", [FieldSchema(
+        "emb", DataType.VECTOR, dimension=8,
+        index=IndexParams("IVFPQ", MetricType.L2,
+                          dict({"ncentroids": 2, "nsubvector": 2,
+                                "train_iters": 2}, **extra)))])
+    e2 = Engine(s2, device="cpu")
+    e2.upsert([{"_id": str(i), "emb": [float(i % 7), 1.0] * 4}
+               for i in range(300)])
+    e2.build_index()
+    q = np.ones((2, 8), np.float32)
+    with accounting.billed("db/s"):
+        res = e2.search(SearchRequest(vectors={"emb": q}, k=3, trace={}))
+    mon = quality.QualityMonitor(get_engines=lambda: {0: e2},
+                                 sample_rate=1.0)
+    mon.observe_search(0, "db/s", {"emb": q}, 3, res, e2.data_version)
+    mon.run_pending()
+    mon.collect_health()
+    sampler.DeviceSampler(e2.device_footprint_bytes).sample_now()
+    e2.close()
 # the native HNSW graph loads the port's own build, never vearch_tpu's
 import os
 from vearch_tpu_torch.native.hnsw_graph import LIBRARY, HnswGraph
@@ -88,7 +115,15 @@ def test_port_imports_no_jax_and_needs_explicit_cpu():
                 "vearch_tpu_torch.tiering.prefetch",
                 "vearch_tpu_torch.tiering.ram_tier",
                 "vearch_tpu_torch.tiering.readahead",
-                "vearch_tpu_torch.tiering.staging"):
+                "vearch_tpu_torch.tiering.staging",
+                "vearch_tpu_torch.ops.perf_model",
+                "vearch_tpu_torch.index.int8_mirror",
+                "vearch_tpu_torch.obs.accounting",
+                "vearch_tpu_torch.obs.errors",
+                "vearch_tpu_torch.obs.flight_recorder",
+                "vearch_tpu_torch.obs.quality",
+                "vearch_tpu_torch.obs.quantiles",
+                "vearch_tpu_torch.obs.sampler"):
         assert mod in got["modules"]
     assert got["refused"] is True
     assert got["from_ref"] == []

@@ -26,18 +26,16 @@ The dispatcher thread calls `Engine._search_direct`, so the kernels
 launch from it: `Engine.warmup` builds them first, and their wrappers'
 lazy builds and launch counters are safe under several threads.
 
-Not ported yet (ROADMAP queue 1 item 8, runtime truth on CUDA): the
-reference's per-tenant accounting (`obs/accounting`) and compile flight
-recorder (`obs/flight_recorder`) hooks. Their call sites in the
-reference's scheduler are `_Pending.__init__` (`trace_id`, `space`
-captured at submit) and `_run_bucket`: the `queue_wait_us` charge per
-pending, `set_active_trace` / `set_space` around each
-`_search_direct` call (solo, grouped and the per-request retry), the
-`device_us` charge after a solo or retried run and
-`apportion_device_us` by row share after a grouped one. In the
-reference's engine they are `Engine.search`'s `device_us` charge around
-a direct search and `RECORDER.warmup()` around `warmup` and
-`build_index`.
+Accounting and compile attribution cross the thread hop with the
+request: `_Pending` captures the caller's trace id
+(obs/flight_recorder) and space (obs/accounting) at submit, and
+`_run_bucket` charges each pending its `queue_wait_us`, re-binds both
+around every `_search_direct` call (solo, grouped, and the per-request
+retry of a failed group), charges `device_us` after a solo or retried
+run, and after a grouped run splits the group's wall time by row share
+(`apportion_device_us`), so the slices sum to it exactly. Discrete
+events of a grouped run (dispatches, H2D bytes) bill to the head's
+space.
 """
 
 from __future__ import annotations
@@ -50,6 +48,8 @@ from typing import TYPE_CHECKING, Any
 
 import numpy as np
 
+from vearch_tpu_torch.obs import accounting as _acct
+from vearch_tpu_torch.obs import flight_recorder as _flightrec
 from vearch_tpu_torch.ops import perf_model
 
 if TYPE_CHECKING:  # pragma: no cover
@@ -59,7 +59,8 @@ if TYPE_CHECKING:  # pragma: no cover
 
 
 class _Pending:
-    __slots__ = ("req", "rows", "done", "results", "error", "t_enqueue")
+    __slots__ = ("req", "rows", "done", "results", "error", "t_enqueue",
+                 "trace_id", "space")
 
     def __init__(self, req: "SearchRequest", rows: int):
         self.req = req
@@ -69,6 +70,10 @@ class _Pending:
         self.error: Exception | None = None
         # stamped at submit, read by _run_bucket for the queue wait
         self.t_enqueue = time.monotonic()
+        # the caller's trace id and space, re-bound on the dispatcher
+        # thread (contextvars do not cross the hop)
+        self.trace_id = _flightrec.current_trace()
+        self.space = _acct.current_space()
 
 
 def _note_queue_wait(p: _Pending, t_dequeue: float) -> None:
@@ -278,9 +283,13 @@ class BatchScheduler:
 
     def _run_one(self, p: _Pending) -> None:
         """Serve one pending on its own (a solo bucket, or the retry of a
-        failed group); a killed request gets its abort, not a run."""
+        failed group) under its trace and space, and charge it the run's
+        wall time; a killed request gets its abort, not a run."""
         from vearch_tpu_torch.engine.types import RequestKilled
 
+        tok = _flightrec.set_active_trace(p.trace_id)
+        stok = _acct.set_space(p.space)
+        t_run0 = time.monotonic()
         try:
             if p.req.ctx is not None and p.req.ctx.killed:
                 p.error = RequestKilled(p.req.ctx.reason or "request killed")
@@ -289,6 +298,11 @@ class BatchScheduler:
         except Exception as e:
             p.error = e
         finally:
+            _acct.ACCOUNTANT.charge(
+                "device_us", int((time.monotonic() - t_run0) * 1e6),
+                space=p.space)
+            _acct.reset_space(stok)
+            _flightrec.reset_active_trace(tok)
             p.done.set()
 
     def _run_bucket(self, bucket: _Bucket) -> None:
@@ -299,6 +313,11 @@ class BatchScheduler:
         self.dispatch_rows += rows
         self.dispatch_capacity += min(
             perf_model.bucket_rows(rows), max(self.max_rows, rows))
+        for p in group:
+            # a killed request is still charged the wait it sat through
+            _acct.ACCOUNTANT.charge(
+                "queue_wait_us",
+                int(max(0.0, t_dequeue - p.t_enqueue) * 1e6), space=p.space)
         if len(group) == 1:
             _note_queue_wait(group[0], t_dequeue)
             self._run_one(group[0])
@@ -334,7 +353,20 @@ class BatchScheduler:
                 trace=trace,
             )
             t_pack1 = time.monotonic()
-            results = self.engine._search_direct(big)
+            # a shared run has many originators: compile attribution and
+            # discrete events go to the head; its wall time is split by
+            # row share, so the slices sum to it exactly
+            tok = _flightrec.set_active_trace(group[0].trace_id)
+            stok = _acct.set_space(group[0].space)
+            t_run0 = time.monotonic()
+            try:
+                results = self.engine._search_direct(big)
+            finally:
+                _acct.ACCOUNTANT.apportion_device_us(
+                    [(p.space, p.rows) for p in group],
+                    int((time.monotonic() - t_run0) * 1e6))
+                _acct.reset_space(stok)
+                _flightrec.reset_active_trace(tok)
             if trace is not None:
                 spans = list(trace.get("_phase_spans") or [])
                 spans.append(["batch.pack", mono_us(t_pack0),

@@ -28,9 +28,19 @@ payload, and `flush_disk` records its durable row count; a load rolls
 the store back to that count. `tiering_info` gathers the indexes' and
 row caches' tier counters.
 
-Not ported yet: the accounting, flight-recorder, build-job and quality
-hooks and the per-request dispatch capture (ROADMAP queue 1 item 8);
-`mesh_serving: on` (item 10).
+Runtime truth (obs/): a direct search charges its wall time to the bound
+space as `device_us` (the scheduler apportions shared runs itself);
+`build_index` and `warmup` run inside the flight recorder's warmup scope
+and `build_index` keeps a `build_job` record for `build_observer`;
+`rebuild_index` calls `note_index_mutation` (the `mutation_observer`
+hook); a traced search captures its dispatches into
+`trace["dispatches"]` beside the documented path's; `pad_real_rows`,
+`pad_padded_rows` and `pad_waste_bytes` count the row padding, and
+`filter_cache_hits` / `_misses` the filter-mask cache; `quality_info`
+gives the quality monitor its health numbers, `device_footprint_bytes`
+the device sampler its model. Names are the reference's.
+
+Not ported yet: `mesh_serving: on` (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -69,6 +79,10 @@ from vearch_tpu_torch.engine.types import (  # noqa: F401 (re-exported)
 )
 from vearch_tpu_torch.index.base import VectorIndex
 from vearch_tpu_torch.index.registry import create_index
+from vearch_tpu_torch.obs import accounting as _acct
+from vearch_tpu_torch.obs.errors import internal_error
+from vearch_tpu_torch.obs.flight_recorder import RECORDER
+from vearch_tpu_torch.ops import ivf as ivf_ops
 from vearch_tpu_torch.ops import perf_model
 from vearch_tpu_torch.ops.distance import score_to_metric
 
@@ -127,6 +141,13 @@ class Engine:
         self.indexes: dict[str, VectorIndex] = {}
         self.status = IndexStatus.UNINDEXED
         self.last_build_error: BaseException | None = None
+        # the current or last index-build job (build_index fills it)
+        self.build_job: dict | None = None
+        # optional sink of a build's terminal job record
+        self.build_observer = None
+        # optional staleness sink for the quality monitor, fired on
+        # every wholesale index replacement (note_index_mutation)
+        self.mutation_observer = None
         self._write_lock = threading.Lock()
         # monotone data version: bumped under _write_lock by every
         # mutation that can change search results (upsert, delete, schema
@@ -141,6 +162,9 @@ class Engine:
         self._filter_cache_lock = threading.Lock()
         self._filter_cache_max = 128
         self._device_filter_cache_max = 16
+        # a hit is a mask served from either cache; a miss an evaluation
+        self.filter_cache_hits = 0
+        self.filter_cache_misses = 0
         # (bitmap version, n) and the alive mask on the device, replaced
         # as one tuple so a concurrent reader never pairs a key with
         # another key's mask
@@ -165,6 +189,10 @@ class Engine:
         # raised to the declared row and fetch-k grid, so mixed-k traffic
         # co-batches; off reverts to free-form shapes
         self.shape_buckets = True
+        # row-padding counters of the shape buckets
+        self.pad_real_rows = 0
+        self.pad_padded_rows = 0
+        self.pad_waste_bytes = 0
         self._scalar_manager = None
         if schema.composite_indexes or any(
             f.scalar_index is not ScalarIndexType.NONE
@@ -478,27 +506,93 @@ class Engine:
         if t is not None:
             t.join(timeout)
 
-    def build_index(self, field_name: str | None = None) -> None:
+    def build_index(self, field_name: str | None = None,
+                    op: str = "build") -> None:
         """Train (where needed) and absorb all current rows, then warm the
         configured batch sizes (`warmup_batches`; none by default). After
         `open` the indexes are trained and absorbed, so this only absorbs
-        rows that arrived since."""
+        rows that arrived since.
+
+        The build is an observable job: `self.build_job` tracks its phase
+        (train / assign / publish / warmup), docs_done of docs_total, the
+        milliseconds of each phase and its terminal status; its phase
+        windows are kept as `_phase_spans` rows ([name, start_us,
+        dur_us]). Builds and warmup run inside the flight recorder's
+        warmup scope: their compile events are expected."""
+        t_start = time.monotonic()
+        targets = [(name, idx) for name, idx in self.indexes.items()
+                   if field_name is None or name == field_name]
+        job: dict[str, Any] = {
+            "op": op, "status": "running", "phase": "train",
+            "docs_total": sum(self.vector_stores[n].count
+                              for n, _ in targets),
+            "docs_done": 0,
+            "started": MONO_EPOCH_OFFSET + t_start,
+            "updated": MONO_EPOCH_OFFSET + t_start,
+            "phases_ms": {}, "error": None, "_phase_spans": [],
+        }
+        self.build_job = job
+
+        def mark(phase: str, t0: float, t1: float) -> None:
+            job["_phase_spans"].append(
+                (f"build.{phase}", mono_us(t0), int((t1 - t0) * 1e6)))
+            job["phases_ms"][phase] = round(
+                job["phases_ms"].get(phase, 0.0) + (t1 - t0) * 1e3, 3)
+            job["phase"] = phase
+            job["updated"] = MONO_EPOCH_OFFSET + t1
+
         self.status = IndexStatus.TRAINING
         try:
-            for name, index in self.indexes.items():
-                if field_name is not None and name != field_name:
-                    continue
-                store = self.vector_stores[name]
-                if index.needs_training and not index.trained:
-                    index.train(store.host_view())
-                index.absorb(store.count)
+            with RECORDER.warmup():
+                for name, index in targets:
+                    store = self.vector_stores[name]
+                    if index.needs_training and not index.trained:
+                        t0 = time.monotonic()
+                        index.train(store.host_view())
+                        mark("train", t0, time.monotonic())
+                    t0 = time.monotonic()
+                    index.absorb(store.count)
+                    mark("assign", t0, time.monotonic())
+                    job["docs_done"] += store.count
         except Exception as e:
             # a failed build must not wedge the engine in TRAINING
             self.last_build_error = e
             self.status = IndexStatus.UNINDEXED
+            now = time.monotonic()
+            job.update(status="error", error=f"{type(e).__name__}: {e}",
+                       duration_seconds=round(now - t_start, 3),
+                       updated=MONO_EPOCH_OFFSET + now)
+            self._notify_build(job)
             raise
+        t0 = time.monotonic()
         self.status = IndexStatus.INDEXED
+        mark("publish", t0, time.monotonic())
+        t0 = time.monotonic()
         self.warmup(field_name=field_name)
+        mark("warmup", t0, time.monotonic())
+        now = time.monotonic()
+        job.update(status="done", phase="done",
+                   duration_seconds=round(now - t_start, 3),
+                   updated=MONO_EPOCH_OFFSET + now)
+        self._notify_build(job)
+
+    def _notify_build(self, job: dict) -> None:
+        obs = self.build_observer
+        if obs is not None:
+            try:
+                obs(job)
+            except Exception as e:  # observability never fails a build
+                internal_error("engine.build_observer", e)
+
+    def note_index_mutation(self, op: str = "") -> None:
+        """Forward a wholesale index replacement to the wired quality
+        observer; a failing observer never fails the mutation."""
+        obs = self.mutation_observer
+        if obs is not None:
+            try:
+                obs(op)
+            except Exception as e:
+                internal_error("engine.mutation_observer", e)
 
     def rebuild_index(self) -> None:
         """Retrain from scratch: fresh indexes over the same stores."""
@@ -506,7 +600,9 @@ class Engine:
             self.indexes[name] = create_index(index.params,
                                               self.vector_stores[name])
         self.status = IndexStatus.UNINDEXED
-        self.build_index()
+        self.build_index(op="rebuild")
+        # the retrain replaced the quantizers and every mirror wholesale
+        self.note_index_mutation(op="rebuild")
 
     def warmup(
         self,
@@ -517,8 +613,14 @@ class Engine:
         """Real searches through each index at the given query-batch sizes
         (default: each index's "warmup_batches" param), raised to the row
         and fetch-k buckets serving dispatches, so the kernels are built
-        and first launched before the first request. Returns the batch
-        sizes run per field."""
+        and first launched at the serving shapes before the first
+        request: inside the flight recorder's warmup scope, their
+        compile events are expected. Returns the batch sizes run per
+        field."""
+        with RECORDER.warmup():
+            return self._warmup_inner(batches, k, field_name)
+
+    def _warmup_inner(self, batches, k, field_name) -> dict[str, list[int]]:
         done: dict[str, list[int]] = {}
         for name, index in self.indexes.items():
             if field_name is not None and name != field_name:
@@ -603,6 +705,69 @@ class Engine:
                 index.close()
             except Exception as e:
                 _log.warning("index close failed: %s", e)
+
+    def quality_info(self) -> dict[str, Any]:
+        """Index-health numbers for the quality monitor's drift gauges
+        (obs/quality.py collect_health): deleted and unindexed fractions,
+        and per field the reconstruction error and the cell-population
+        imbalance. Host work only."""
+        total = int(self.table.doc_count)
+        deleted = int(self.bitmap.deleted_count)
+        info: dict[str, Any] = {
+            "doc_count": total - deleted,
+            "deleted_count": deleted,
+            "deleted_frac": deleted / total if total else 0.0,
+            "data_version": int(self.data_version),
+            "fields": {},
+        }
+        for name, index in self.indexes.items():
+            n = int(index.store.count)
+            if index.needs_training and n:
+                unindexed = (n - min(int(index.indexed_count), n)) / n
+            else:
+                # FLAT-family indexes scan the raw store: the tail is
+                # always searched
+                unindexed = 0.0
+            f: dict[str, Any] = {
+                "index_type": index.params.index_type,
+                "trained": bool(index.trained),
+                "indexed_count": int(index.indexed_count),
+                "unindexed_frac": unindexed,
+            }
+            try:
+                f["recon_error"] = index.reconstruction_error()
+            except Exception as e:
+                internal_error("engine.quality_info", e)
+                f["recon_error"] = None
+            pops = index.cell_populations()
+            if pops:
+                arr = np.asarray(pops, dtype=np.float64)
+                mean = float(arr.mean())
+                f["ncells"] = len(pops)
+                f["cell_min"] = int(arr.min())
+                f["cell_max"] = int(arr.max())
+                f["cell_imbalance_cv"] = (
+                    float(arr.std() / mean) if mean > 0 else 0.0)
+            info["fields"][name] = f
+        return info
+
+    def device_footprint_bytes(self) -> int:
+        """Modelled resident device bytes (the device sampler's model
+        side): every field's index, plus the masks the engine keeps on
+        the device (the alive mask and the cached filter masks), which
+        the reference's model leaves out."""
+        total = sum(int(index.device_footprint_per_device_bytes())
+                    for index in list(self.indexes.values()))
+        cached = self._mask_cache
+        masks = [cached[1]] if cached is not None else []
+        with self._filter_cache_lock:
+            masks += list(self._device_filter_cache.values())
+        return total + sum(m.numel() * m.element_size() for m in masks)
+
+    def mesh_info(self) -> dict[str, Any] | None:
+        """Mesh placement summary over the fields: None, as the port
+        serves one device."""
+        return None
 
     def tiering_info(self) -> dict[str, Any] | None:
         """Tiered-storage summary over the vector fields (each index's
@@ -827,7 +992,9 @@ class Engine:
                 mask = self._filter_cache.get(key)
                 if mask is not None:
                     self._filter_cache.move_to_end(key)
+                    self.filter_cache_hits += 1
                     return mask
+                self.filter_cache_misses += 1
         mask = self.bitmap.valid_mask(n) & evaluate_filter(filters, self, n)
         if fkey is not None:
             with self._filter_cache_lock:
@@ -847,6 +1014,7 @@ class Engine:
                 mask = self._device_filter_cache.get(key)
                 if mask is not None:
                     self._device_filter_cache.move_to_end(key)
+                    self.filter_cache_hits += 1
                     return mask
         mask = torch.from_numpy(
             np.ascontiguousarray(self._filtered_mask(filters, n))
@@ -882,13 +1050,32 @@ class Engine:
                             max_delay_ms=self.batch_delay_ms)
             if mb is not None:
                 return mb.submit(req)
-        return self._search_direct(req)
+        # a direct search bills its whole wall time to the bound space
+        # (the scheduler apportions shared runs in _run_bucket)
+        t0 = time.monotonic()
+        try:
+            return self._search_direct(req)
+        finally:
+            _acct.ACCOUNTANT.charge(
+                "device_us", int((time.monotonic() - t0) * 1e6))
 
     def _search_direct(self, req: SearchRequest) -> list[SearchResult]:
         if not req.vectors:
             raise ValueError("search needs at least one vector field")
-        trace = req.trace
         phases: list[tuple[str, float, float]] = []
+        # a traced search captures the search programs it runs
+        capture = ivf_ops.begin_capture() if req.trace is not None else None
+        try:
+            return self._search_phases(req, phases)
+        finally:
+            if capture is not None:
+                ivf_ops.end_capture()
+                self._record_dispatch_trace(req, capture, phases)
+
+    def _search_phases(self, req: SearchRequest,
+                       phases: list[tuple[str, float, float]]
+                       ) -> list[SearchResult]:
+        trace = req.trace
         t_start = time.monotonic()
         n = self.table.doc_count
         if req.filters is not None:
@@ -936,6 +1123,10 @@ class Engine:
                 if bb != b_rows:
                     q_run = np.concatenate(
                         [queries, np.repeat(queries[-1:], bb - b_rows, 0)])
+                self.pad_real_rows += b_rows
+                self.pad_padded_rows += bb
+                self.pad_waste_bytes += perf_model.padding_waste_bytes(
+                    b_rows, bb, int(queries.shape[1]))
             if index.trained and not req.brute_force:
                 if index.indexed_count < store.count:
                     index.absorb(store.count)  # realtime pump
@@ -950,6 +1141,9 @@ class Engine:
                 scores, ids = flat.search(q_run, fetch_k, valid)
             per_field[name] = (scores[:b_rows], ids[:b_rows])
             if trace is not None:
+                # the field's search is done (its results are on the
+                # host): close the open dispatch window
+                ivf_ops.capture_mark()
                 t_done = time.monotonic()
                 trace[f"search_{name}_ms"] = round(
                     (t_done - t_field) * 1e3, 3)
@@ -968,12 +1162,58 @@ class Engine:
                        ("engine.shape", t_shape, t_end)]
             trace["total_ms"] = round((t_end - t_start) * 1e3, 3)
             trace["doc_count"] = self.doc_count
-            # extend, not replace: the scheduler may have noted its queue
-            # wait on this trace before the search ran
-            trace["_phase_spans"] = list(trace.get("_phase_spans") or []) + [
-                [name, mono_us(t0), int((t1 - t0) * 1e6)]
-                for name, t0, t1 in phases]
         return results
+
+    def _record_dispatch_trace(self, req, capture, phases) -> None:
+        """Fold the dispatch capture and the phase windows into req.trace:
+        the measured dispatches (tags, host ms per tag) beside the perf
+        model's prediction for the matched serving path, and the
+        `_phase_spans` rows ([name, start_us, dur_us]; engine.*, kernel.*,
+        tier.*, stage.*)."""
+        trace = req.trace
+        tags = capture.tags
+        trace["dispatches"] = tags
+        trace["dispatch_count"] = len(tags)
+        for tag, t0, t1 in capture.events:
+            if t1 is not None:
+                key = f"dispatch_{tag}_ms"
+                trace[key] = round(trace.get(key, 0.0) + (t1 - t0) * 1e3, 3)
+        path = perf_model.path_for_dispatches(tags)
+        if path is not None:
+            trace["perf_path"] = path
+            trace["predicted_dispatches"] = list(
+                perf_model.DOCUMENTED_DISPATCHES[path])
+        trace["predicted_scan_bytes"] = sum(
+            self._predicted_scan_bytes(name) for name in req.vectors)
+        # extend, not replace: the scheduler may have noted its queue
+        # wait on this trace before the search ran
+        spans = list(trace.get("_phase_spans") or [])
+        spans += [[name, mono_us(t0), int((t1 - t0) * 1e6)]
+                  for name, t0, t1 in phases]
+        spans += [[f"kernel.{tag}", mono_us(t0), int((t1 - t0) * 1e6)]
+                  for tag, t0, t1 in capture.events if t1 is not None]
+        for prefix, windows in (("tier", capture.tier_phases),
+                                ("stage", capture.stage_phases)):
+            spans += [[f"{prefix}.{name}", mono_us(t0),
+                       int((t1 - t0) * 1e6)] for name, t0, t1 in windows]
+        trace["_phase_spans"] = spans
+        if capture.tier_phases:
+            tinfo = self.tiering_info()
+            if tinfo is not None:
+                trace["tiering"] = tinfo
+
+    def _predicted_scan_bytes(self, name: str) -> int:
+        """Modelled stage-1 scan read bytes of one field
+        (perf_model.scan_traffic_bytes): the mirror when the index keeps
+        one, else the raw store's rows."""
+        index = self.indexes[name]
+        store = self.vector_stores[name]
+        mirror = getattr(index, "_mirror", None)
+        if mirror is not None:
+            return perf_model.scan_traffic_bytes(
+                1, int(mirror._h8.shape[0]), store.dimension, "xla_full")
+        return int(store.count) * store.dimension * int(
+            store.store_dtype.itemsize)
 
     def _exact_score(self, name: str, query: np.ndarray,
                      docids: list[int]) -> np.ndarray:

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from vearch_tpu_torch.device import resolve_device
+from vearch_tpu_torch.ops import perf_model
 from vearch_tpu_torch.ops.distance import host_sqnorms
 
 STORE_DTYPES = {
@@ -107,10 +108,14 @@ class RawVectorStore:
                 t, sq = self._stored(self._host)
                 self._device = t.to(self.device, copy=True)
                 self._device_sqnorm = torch.from_numpy(sq).to(self.device)
+                perf_model.note_h2d_bytes(
+                    t.numel() * t.element_size() + sq.nbytes)
                 self._device_rows = n
             elif self._device_rows < n:
                 lo = self._device_rows
                 t, sq = self._stored(self._host[lo:n])
+                # the rows only, as the reference counts a tail
+                perf_model.note_h2d_bytes(t.numel() * t.element_size())
                 self._device[lo:n] = t.to(self.device)
                 self._device_sqnorm[lo:n] = torch.from_numpy(sq).to(
                     self.device)

@@ -6,6 +6,10 @@ Contract (as in the reference):
 - `search` takes a validity mask (deletions + scalar filter) and applies
   it inside the scan, so k valid results survive;
 - `train`/`absorb` keep host-side state swaps atomic.
+
+Device-footprint models (`device_footprint_bytes`, the sampler's model
+side) count the tensors the port keeps on the card, which is where they
+differ from the reference's (each override says how).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import numpy as np
 
 from vearch_tpu_torch.engine.raw_vector import RawVectorStore
 from vearch_tpu_torch.engine.types import IndexParams, MetricType
+from vearch_tpu_torch.ops import perf_model
 
 
 class VectorIndex(abc.ABC):
@@ -68,6 +73,45 @@ class VectorIndex(abc.ABC):
         """Absorb raw-vector rows [indexed_count, upto) into the index
         structure. Indexes that search the raw store just advance."""
         self.indexed_count = upto
+
+    def _raw_store_device_bytes(self) -> int:
+        """The raw store's device buffer and |v|^2 column at its
+        capacity; nothing for a disk store, whose rows never enter the
+        card (the reference's model counts them there too)."""
+        if getattr(self.store, "durable_on_disk", False):
+            return 0
+        return perf_model.raw_store_footprint_bytes(
+            self.store.capacity, self.store.dimension,
+            self.store.store_dtype.itemsize)
+
+    def device_footprint_bytes(self) -> int:
+        """Modelled resident device bytes of this index's state. The
+        default covers indexes that search the raw store directly; index
+        types with more device state (mirrors, bucket tensors) add it."""
+        return self._raw_store_device_bytes()
+
+    def device_footprint_per_device_bytes(self) -> int:
+        """Modelled resident bytes on each device: the port serves one
+        device, so all of it."""
+        return self.device_footprint_bytes()
+
+    def mesh_info(self) -> dict[str, Any] | None:
+        """Mesh placement summary; None, as the port serves one device
+        (mesh serving is ROADMAP queue 1 item 10)."""
+        return None
+
+    def cell_populations(self) -> list[int] | None:
+        """Per-cell member counts, None for index types without a coarse
+        partitioning."""
+        return None
+
+    def reconstruction_error(self, sample: int = 256,
+                             seed: int = 0) -> float | None:
+        """Mean relative reconstruction error |x - dequant(quant(x))| / |x|
+        over `sample` stored rows (the codes scored at serve time, not a
+        fresh encode). None when the index stores rows exactly or is
+        untrained. Host numpy only: no device work."""
+        return None
 
     def tiering_info(self) -> dict[str, Any] | None:
         """Tiered-storage summary (per-tier hit/miss/pin counters,

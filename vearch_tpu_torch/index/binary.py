@@ -19,11 +19,14 @@ int8-only full-scan chain of IVFPQ instead. On a disk store stages 0
 and 1 run on the device (`binary_refine_candidates`, tag
 binary_refine_scan) and the exact rerank gathers the raw rows on the
 host (`_store_paths.rerank_against_store`), counted as the "disk" path
-of `note_refine_search`. Not ported yet: the mesh branch (mesh_serving
-"on" raises, ROADMAP queue 1 item 10) and int4 mirrors (item 3).
+of `note_refine_search`. `mirror_dtype: "int4"` keeps the stage-1 tier
+as packed int4 rows. Not ported yet: the mesh branch (mesh_serving "on"
+raises, ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 
@@ -84,6 +87,17 @@ class IVFRaBitQIndex(IVFPQIndex):
         self._bits = Int8Mirror(store.dimension, storage="bits",
                                 device=self.device)
 
+    def device_footprint_bytes(self) -> int:
+        # IVFPQ's (raw store, centroids, stage-1 mirror) plus the planes
+        return super().device_footprint_bytes() + self._bits.device_bytes()
+
+    def reconstruction_error(self, sample: int = 256,
+                             seed: int = 0) -> float | None:
+        """None: the chain stores no PQ codes to decode. The reference's
+        inherited IVFPQ method also returns None for a loaded index, and
+        raises IndexError on one it trained itself (ROADMAP queue 3)."""
+        return None
+
     def _train_extra(self, sample: np.ndarray) -> None:
         pass  # no codebooks: only the coarse quantizer is trained
 
@@ -142,28 +156,37 @@ class IVFRaBitQIndex(IVFPQIndex):
         )
         r0, r1 = self._stage_depths(k, params)
         topk_mode = p.get("topk_mode", self.params.get("topk_mode", "auto"))
+        # host windows of the chain (stage.* spans of a traced search)
+        t_flush0 = time.monotonic()
         planes, p_scale, p_vsq = self._bits.flush()
         approx8, m_scale, m_vsq = self._mirror.flush()
         valid = to_device_mask(valid_mask, self.indexed_count,
                                planes.shape[0], self.device)
+        ivf_ops.note_stage_phase("flush", t_flush0, time.monotonic())
         if is_disk_store(self.store):
             # stages 0-1 on the device; the stage-2 rows gathered on the
             # host through the mmap (the raw base never enters the card)
+            t0 = time.monotonic()
             ivf_ops.note_dispatch("binary_refine_scan")
             _, cand_i = binary_ops.binary_refine_candidates(
                 self._to_device(q), planes, p_scale, p_vsq,
                 approx8, m_scale, m_vsq, valid, r0, r1, metric, topk_mode,
                 self.mirror_storage,
             )
+            ivf_ops.note_stage_phase("scan", t0, time.monotonic())
+            t2 = time.monotonic()
             ivf_ops.note_dispatch("rerank")
             scores, ids = rerank_against_store(
                 self.store, q, cand_i, min(k, int(cand_i.shape[1])),
                 self.metric,
             )
+            scores, ids = _host(scores), _host(ids)
+            ivf_ops.note_stage_phase("rerank", t2, time.monotonic())
             binary_ops.note_refine_search(
                 "disk", self.indexed_count, r0, r1, k, q.shape[0])
-            return self._pad_to_k(_host(scores), _host(ids), k)
+            return self._pad_to_k(scores, ids, k)
         base, base_sqnorm, _ = self.store.device_buffer()
+        t0 = time.monotonic()
         ivf_ops.note_dispatch("binary_refine_rerank")
         scores, ids = binary_ops.binary_refine_rerank(
             self._to_device(q), planes, p_scale, p_vsq,
@@ -172,6 +195,7 @@ class IVFRaBitQIndex(IVFPQIndex):
             topk_mode=topk_mode, storage=self.mirror_storage,
         )
         scores, ids = _host(scores), _host(ids)
+        ivf_ops.note_stage_phase("refine", t0, time.monotonic())
         binary_ops.note_refine_search(
             "fused", self.indexed_count, r0, r1, k, q.shape[0])
         return self._pad_to_k(scores, ids, k)

@@ -211,6 +211,40 @@ class DiskANNIndex(VectorIndex):
                 return None
             return [len(mm) for mm in self._members]
 
+    def reconstruction_error(self, sample: int = 256,
+                             seed: int = 0) -> float | None:
+        """Dequantize stored int8 scan rows (a8 * scale) against the raw
+        store, reading the mmaps directly: no device work."""
+        with self._absorb_lock:
+            n = int(self.indexed_count)
+            if not self.trained or n == 0 or self._a8 is None:
+                return None
+            rng = np.random.default_rng(seed)
+            ids = np.sort(rng.choice(n, size=min(int(sample), n),
+                                     replace=False))
+            raw = self._maybe_normalize(
+                np.asarray(self.store.host_view()[ids], dtype=np.float32))
+            approx = (np.asarray(self._a8[ids], dtype=np.float32)
+                      * np.asarray(self._m2[ids, 0],
+                                   dtype=np.float32)[:, None])
+            num = np.linalg.norm(raw - approx, axis=1)
+            den = np.maximum(np.linalg.norm(raw, axis=1), 1e-12)
+            return float(np.mean(num / den))
+
+    def device_footprint_bytes(self) -> int:
+        """The centroids, the slab pools at the cache_mb budget and their
+        per-slot live lengths (the port's `pool_lens`, [slots] int32), and
+        the raw store's device buffer when the store is not on disk. The
+        reference's model counts the raw store as device-resident and no
+        pools."""
+        total = self._raw_store_device_bytes()
+        if self.centroids is not None:
+            total += self.centroids.numel() * self.centroids.element_size()
+        cache = self._cache
+        if cache is not None:
+            total += cache.hbm_bytes + cache.slots * 4
+        return total
+
     def _extend_members(self, assign: np.ndarray, start: int) -> None:
         order = np.argsort(assign, kind="stable")
         sorted_assign = assign[order]

@@ -57,6 +57,11 @@ class HNSWIndex(VectorIndex):
             else bool(mode)
         self._graph = self._new_graph() if self.use_graph else None
 
+    def device_footprint_bytes(self) -> int:
+        # the raw store and the scan mode's int8 mirror (empty in graph
+        # mode); the reference's model leaves the mirror out
+        return super().device_footprint_bytes() + self._mirror.device_bytes()
+
     def _new_graph(self) -> HnswGraph:
         return HnswGraph(self.store.dimension, m=self.m,
                          ef_construction=self.ef_construction,

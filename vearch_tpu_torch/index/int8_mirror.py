@@ -6,10 +6,10 @@ lazily flushed device copy: a capacity change re-uploads everything,
 otherwise only the rows appended since the last flush are copied, in
 place. Capacity stays a multiple of 512 — the block-max scan reduces
 each 512-row block to its maximum. `storage` picks the row payload:
-"int8" (per-row scaled int8, d bytes a row) or "bits" (packed sign
-planes, ceil(d/8) bytes a row: IVFRABITQ's stage-0 tier,
-ops/binary_scan.pack_sign_rows). The reference's "int4" is not ported
-yet (ROADMAP queue 1 item 3).
+"int8" (per-row scaled int8, d bytes a row), "int4" (per-row scaled
+int4, two values a byte, d/2 bytes a row: half the resident bytes of
+int8's payload) or "bits" (packed sign planes, ceil(d/8) bytes a row:
+IVFRABITQ's stage-0 tier, ops/binary_scan.pack_sign_rows).
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from vearch_tpu_torch.device import resolve_device
+from vearch_tpu_torch.ops import perf_model
 from vearch_tpu_torch.ops.binary_scan import pack_sign_rows
 
 
@@ -34,15 +35,40 @@ def quantize_rows(rows: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]
     return q8, scale, vsq
 
 
+def quantize_rows_int4(
+    rows: np.ndarray,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-row symmetric int4 quantization, nibble-packed.
+
+    Layout contract (ops/ivf.py unpack_int4): dims [0, d/2) in the low
+    nibble, dims [d/2, d) in the high nibble, a concat, not an
+    interleave. Returns (packed [n, d/2] uint8, scale, vsq of the
+    dequantized rows)."""
+    d = rows.shape[1]
+    if d % 2 != 0:
+        raise ValueError("int4 storage needs an even dimension")
+    scale = np.maximum(np.abs(rows).max(axis=1) / 7.0, 1e-12).astype(
+        np.float32
+    )
+    q4 = np.clip(np.rint(rows / scale[:, None]), -7, 7).astype(np.int8)
+    deq = q4.astype(np.float32) * scale[:, None]
+    vsq = np.sum(deq * deq, axis=1).astype(np.float32)
+    lo = q4[:, : d // 2] & 0xF
+    hi = q4[:, d // 2:] & 0xF
+    packed = (lo | (hi << 4)).astype(np.uint8)
+    return packed, scale, vsq
+
+
 class Int8Mirror:
     def __init__(self, dimension: int, storage: str = "int8", device=None):
         self.storage = str(storage).lower()
-        if self.storage == "int4":
-            raise NotImplementedError(
-                "int4 mirror storage is not ported yet (ROADMAP queue 1 "
-                "item 3)")
         if self.storage == "int8":
             self._row_width, self._row_dtype = dimension, np.int8
+        elif self.storage == "int4":
+            if dimension % 2 != 0:
+                raise ValueError(
+                    "int4 mirror storage needs an even dimension")
+            self._row_width, self._row_dtype = dimension // 2, np.uint8
         elif self.storage == "bits":  # byte-padded packed sign planes
             self._row_width, self._row_dtype = -(-dimension // 8), np.uint8
         else:
@@ -100,7 +126,8 @@ class Int8Mirror:
                 self._d_rows = start
 
     def append(self, rows: np.ndarray, start: int | None = None) -> None:
-        quant = pack_sign_rows if self.storage == "bits" else quantize_rows
+        quant = {"int8": quantize_rows, "int4": quantize_rows_int4,
+                 "bits": pack_sign_rows}[self.storage]
         self.append_quantized(*quant(rows), start=start)
 
     def flush(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -116,9 +143,15 @@ class Int8Mirror:
                     self.device, copy=True)
                 self._d_vsq = torch.from_numpy(self._h_vsq).to(
                     self.device, copy=True)
+                perf_model.note_h2d_bytes(self._h8.nbytes
+                                          + self._h_scale.nbytes
+                                          + self._h_vsq.nbytes)
                 self._d_rows = n
             elif self._d_rows < n:
                 sl = slice(self._d_rows, n)
+                perf_model.note_h2d_bytes(self._h8[sl].nbytes
+                                          + self._h_scale[sl].nbytes
+                                          + self._h_vsq[sl].nbytes)
                 self._d8[sl] = torch.from_numpy(self._h8[sl]).to(self.device)
                 self._d_scale[sl] = torch.from_numpy(
                     self._h_scale[sl]).to(self.device)

@@ -25,10 +25,26 @@
   slots included. Where the reference falls back to the flat quantizer
   with a warning when the native build fails, the port raises;
 - `_fit_codebooks` / `_encode_rows` are the codebook hooks SCANN
-  overrides.
+  overrides;
+- IVFPQ's `mirror_dtype: "int4"` keeps the full-scan mirror as packed
+  int4 rows (half the resident bytes), scanned by
+  `ops/ivf.int4_scan_candidates`; `opq: true` learns an orthonormal
+  rotation R before PQ (alternating PQ training on rotated residuals
+  with the Procrustes update R = U V^T from svd(resid^T decoded), host
+  numpy, `opq_iters` rounds): codes live in the rotated space, and the
+  mirror and the probe buckets hold the approximations rotated back, so
+  neither scan sees R;
+- `reconstruction_error` (the quality monitor's drift gauge) decodes the
+  stored codes on the host: 0.0 for IVFFLAT, whose buckets hold the raw
+  rows.
+
+Device footprint (`device_footprint_bytes`): the raw store, the
+centroids, the published bucket tensors and, for IVFPQ, the codebooks
+and the mirror, as in the reference; the port also keeps
+`_bucket_lens` ([nlist] int32) beside the probe buckets and counts it.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: mesh serving and mesh training, OPQ and int4 mirrors.
+item: mesh serving and mesh training.
 """
 
 from __future__ import annotations
@@ -83,6 +99,16 @@ class _IVFBase(VectorIndex):
         # published probe-regime state
         self._bucket_ids: torch.Tensor | None = None  # [nlist, cap] int32
         self._cap = 0
+
+    def _device_state_arrays(self) -> tuple:
+        """Device tensors this index keeps beyond the raw store (the
+        footprint model's input; subclasses extend)."""
+        return (self.centroids, self._bucket_ids)
+
+    def device_footprint_bytes(self) -> int:
+        return super().device_footprint_bytes() + sum(
+            a.numel() * a.element_size()
+            for a in self._device_state_arrays() if a is not None)
 
     # -- training ------------------------------------------------------------
 
@@ -295,6 +321,15 @@ class IVFFlatIndex(_IVFBase):
         self._bucket_vecs: torch.Tensor | None = None    # [nlist, cap, d]
         self._bucket_sqnorm: torch.Tensor | None = None  # [nlist, cap] f32
 
+    def _device_state_arrays(self) -> tuple:
+        return super()._device_state_arrays() + (
+            self._bucket_vecs, self._bucket_sqnorm)
+
+    def reconstruction_error(self, sample: int = 256,
+                             seed: int = 0) -> float | None:
+        # the buckets hold the raw rows: scoring is exact
+        return 0.0 if self.trained else None
+
     def _publish_buckets(self, ids: np.ndarray) -> None:
         host = self.store.host_view()
         vecs = np.zeros((self.nlist, ids.shape[1], self.store.dimension),
@@ -352,15 +387,18 @@ class IVFPQIndex(_IVFBase):
                 f"{store.dimension}"
             )
         self.ksub = 1 << int(params.get("nbits_per_idx", params.get("nbits", 8)))
-        if bool(params.get("opq", False)):
-            raise NotImplementedError(
-                "OPQ is not ported yet (ROADMAP queue 1 item 3)")
+        # optional learned rotation before PQ
+        self.opq = bool(params.get("opq", False))
+        self.opq_iters = int(params.get("opq_iters", 5))
+        self._opq_R: np.ndarray | None = None  # [d, d] orthonormal, host
         self.scan_mode = str(params.get("scan_mode", "auto"))
         self.full_scan_limit = int(params.get("full_scan_limit", 16_000_000))
         self._check_mesh(params.get("mesh_serving",
                                     params.get("data_parallel", "auto")))
         self.codebooks: torch.Tensor | None = None  # [m, ksub, dsub]
         self._codes: np.ndarray | None = None  # [n_indexed, m] host codes
+        # row -> cell, docid-ordered (reconstruction_error reads it)
+        self._assign_host = np.zeros(0, dtype=np.int32)
         # probe-regime state (bucket-grouped)
         self._bucket_resid8: torch.Tensor | None = None  # [nlist, cap, d]
         self._bucket_scale: torch.Tensor | None = None   # [nlist] f32
@@ -379,10 +417,35 @@ class IVFPQIndex(_IVFBase):
             raise NotImplementedError(
                 "mesh_serving is not ported yet (ROADMAP queue 1 item 10)")
 
+    def _device_state_arrays(self) -> tuple:
+        return super()._device_state_arrays() + (
+            self.codebooks, self._bucket_resid8, self._bucket_scale,
+            self._bucket_vsq, self._bucket_lens)
+
+    def device_footprint_bytes(self) -> int:
+        # bucket and centroid state and the raw store (super), plus the
+        # docid-ordered mirror the full scan serves from
+        return super().device_footprint_bytes() + self._mirror.device_bytes()
+
     def _train_extra(self, sample: np.ndarray) -> None:
         assign = _host(km.assign_clusters(self._to_device(sample),
                                           self.centroids))
         resid = sample - _host(self.centroids)[assign]
+        if self.opq:
+            # OPQ: alternate PQ training on the rotated residuals with the
+            # Procrustes update R = U V^T from svd(resid^T decoded)
+            R = np.eye(resid.shape[1], dtype=np.float32)
+            for _ in range(self.opq_iters):
+                z = self._to_device(resid @ R)
+                codebooks = pq_ops.train_pq(
+                    z, m=self.m, ksub=self.ksub,
+                    iters=max(self.train_iters // 2, 2))
+                decoded = pq_ops.decode_pq_np(
+                    _host(pq_ops.encode_pq(z, codebooks)), codebooks)
+                u, _s, vt = np.linalg.svd(resid.T @ decoded)
+                R = (u @ vt).astype(np.float32)
+            self._opq_R = R
+            resid = resid @ R
         self.codebooks = self._fit_codebooks(resid, sample)
         self._codes = np.zeros((0, self.m), dtype=np.uint8)
 
@@ -405,6 +468,8 @@ class IVFPQIndex(_IVFBase):
     ) -> None:
         cents = _host(self.centroids)
         resid = rows - cents[assign]
+        if self._opq_R is not None:
+            resid = resid @ self._opq_R  # encode in the rotated space
         codes = self._encode_rows(resid, rows)
         if self._codes is None:
             self._codes = np.zeros((0, self.m), dtype=np.uint8)
@@ -415,15 +480,51 @@ class IVFPQIndex(_IVFBase):
             grown[: self._codes.shape[0]] = self._codes
             self._codes = grown
         self._codes[start_docid:need] = codes
-        # docid-ordered int8 mirror: decode the PQ approximation, add the
-        # centroid, quantize per row, append
-        approx = cents[assign] + pq_ops.decode_pq_np(codes, self.codebooks)
+        if self._assign_host.shape[0] < need:
+            ga = np.zeros(max(need, self._assign_host.shape[0] * 2),
+                          dtype=np.int32)
+            ga[: self._assign_host.shape[0]] = self._assign_host
+            self._assign_host = ga
+        self._assign_host[start_docid:need] = assign.astype(np.int32)
+        # docid-ordered mirror: decode the PQ approximation, rotate it
+        # back (OPQ), add the centroid, quantize per row, append
+        approx = cents[assign] + self._decode(codes)
         if self.metric is MetricType.COSINE:
             # re-normalize: PQ error perturbs the norm, and the IP scan
             # would rank by (1 +- err) * cos
             approx = approx / np.maximum(
                 np.linalg.norm(approx, axis=1, keepdims=True), 1e-12)
         self._mirror.append(approx, start=start_docid)
+
+    def _decode(self, codes: np.ndarray) -> np.ndarray:
+        """PQ codes -> residual approximations in the original space."""
+        decoded = pq_ops.decode_pq_np(codes, self.codebooks)
+        if self._opq_R is not None:
+            decoded = decoded @ self._opq_R.T
+        return decoded
+
+    def reconstruction_error(self, sample: int = 256,
+                             seed: int = 0) -> float | None:
+        """Decode the stored codes (the serving representation) back to
+        full vectors and compare them with the raw rows: host numpy only.
+        Covers SCANN too (the same stored-code layout)."""
+        with self._absorb_lock:
+            n = int(self.indexed_count)
+            if not self.trained or n == 0 or self._codes is None:
+                return None
+            rng = np.random.default_rng(seed)
+            ids = np.sort(rng.choice(n, size=min(int(sample), n),
+                                     replace=False))
+            raw = self._maybe_normalize(
+                np.asarray(self.store.host_view()[ids], dtype=np.float32))
+            approx = (_host(self.centroids)[self._assign_host[ids]]
+                      + self._decode(self._codes[ids]))
+            if self.metric is MetricType.COSINE:
+                approx = approx / np.maximum(
+                    np.linalg.norm(approx, axis=1, keepdims=True), 1e-12)
+            num = np.linalg.norm(raw - approx, axis=1)
+            den = np.maximum(np.linalg.norm(raw, axis=1), 1e-12)
+            return float(np.mean(num / den))
 
     def search(
         self,
@@ -465,7 +566,7 @@ class IVFPQIndex(_IVFBase):
                               self.params.get("topk_mode", "auto"))
             fused = p.get("fused_rerank",
                           self.params.get("fused_rerank", True))
-            if scan_kernel == "pallas":
+            if scan_kernel == "pallas" and self.mirror_storage == "int8":
                 # the reference's one-pass block-max entry point; on a
                 # GPU both scan_kernel values reach the same Hopper kernel
                 ivf_ops.note_dispatch("pallas_blockmax_scan")
@@ -480,11 +581,15 @@ class IVFPQIndex(_IVFBase):
                     qt, approx8, scale, vsq, valid, base, base_sqnorm,
                     max(r, k), k, scan_metric=metric,
                     rerank_metric=self.metric, topk_mode=topk_mode,
+                    storage=self.mirror_storage,
                 )
                 return self._pad_to_k(_host(scores), _host(ids), k)
             else:
+                scan = (ivf_ops.int8_scan_candidates
+                        if self.mirror_storage == "int8"
+                        else ivf_ops.int4_scan_candidates)
                 ivf_ops.note_dispatch("scan")
-                cand_s, cand_i = ivf_ops.int8_scan_candidates(
+                cand_s, cand_i = scan(
                     qt, approx8, scale, vsq, valid, max(r, k), metric,
                     topk_mode,
                 )
@@ -548,6 +653,8 @@ class IVFPQIndex(_IVFBase):
                 continue
             rows = np.asarray(mm, dtype=np.int64)
             decoded = pq_ops.decode_pq_np(self._codes[rows], codebooks)
+            if self._opq_R is not None:
+                decoded = decoded @ self._opq_R.T  # back to the original
             if self.metric is MetricType.COSINE:
                 # the residual against the normalized approximation, so
                 # cent_c + s*r8 reconstructs a unit-norm vector (the
@@ -575,11 +682,12 @@ class IVFPQIndex(_IVFBase):
         state = super().dump_state()
         if state and self.codebooks is not None:
             state["codebooks"] = _host(self.codebooks)
+            if self._opq_R is not None:
+                state["opq_R"] = self._opq_R
         return state
 
     def _load_codebooks(self, state: dict[str, Any]) -> None:
-        if "opq_R" in state:
-            raise NotImplementedError(
-                "OPQ is not ported yet (ROADMAP queue 1 item 3)")
         self.codebooks = self._to_device(state["codebooks"])
+        if "opq_R" in state:
+            self._opq_R = np.asarray(state["opq_R"], dtype=np.float32)
         self._codes = np.zeros((0, self.m), dtype=np.uint8)

@@ -11,7 +11,9 @@ unchanged one is loaded as it is. A build happens at first use, under a
 lock, so two threads that launch at once build once; a failed build
 raises. `count_launch` adds one to a wrapper's launch counter under a
 lock, so launches from the batch scheduler's thread and the caller's
-are all counted.
+are all counted. Each build or load of a library is a compile event of
+program `build.<source stem>` (ops/perf_model.note_program), with its
+seconds, so the flight recorder sees a build that happens after warmup.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+
+from vearch_tpu_torch.ops import perf_model
 
 PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = PKG / "_build"
@@ -78,7 +82,9 @@ class CudaLibrary:
         """Build (if needed) and load the library; returns the handle."""
         with self._lock:
             if self._lib is None:
+                t0 = time.perf_counter()
                 self._lib = self._build_and_load()
+                _note_build(self.source, self.path, t0)
             return self._lib
 
     def _build_and_load(self) -> ctypes.CDLL:
@@ -109,6 +115,7 @@ class HostExtension:
         """Build (if needed) and import the module; returns it."""
         with self._lock:
             if self._mod is None:
+                t0 = time.perf_counter()
                 flags = ["-O3", "-shared", "-fPIC", "-std=c++17",
                          f"-I{sysconfig.get_paths()['include']}"]
                 self.path, self.build_log = _build(self.source, ["g++"],
@@ -118,7 +125,13 @@ class HostExtension:
                 mod = importlib.util.module_from_spec(spec)
                 spec.loader.exec_module(mod)
                 self._mod = mod
+                _note_build(self.source, self.path, t0)
             return self._mod
+
+
+def _note_build(source: Path, path: str, t0: float) -> None:
+    perf_model.note_program(f"build.{source.stem}", Path(path).name,
+                            (time.perf_counter() - t0) * 1e3)
 
 
 def _build(source: Path, compiler: list[str], flags: list[str],

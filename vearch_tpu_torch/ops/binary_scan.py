@@ -13,7 +13,7 @@ exact products summed in f32. The reference left this program to XLA
 The chain over three representations of the same rows:
 
     stage 0  binary scan over every row           -> top r0
-    stage 1  int8 mirror rescore of the r0 rows   -> top r1
+    stage 1  int8/int4 mirror rescore of the r0 rows -> top r1
     stage 2  exact rerank against the raw base    -> top k
 
 `binary_refine_candidates` runs stages 0-1, `binary_refine_rerank` all
@@ -36,8 +36,13 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from vearch_tpu_torch.engine.types import MetricType
+from vearch_tpu_torch.ops import perf_model
 from vearch_tpu_torch.ops.distance import NEG_INF, sqnorms, stable_topk
-from vearch_tpu_torch.ops.ivf import exact_rerank, select_topk_scores
+from vearch_tpu_torch.ops.ivf import (
+    exact_rerank,
+    select_topk_scores,
+    unpack_int4,
+)
 
 #: profiler ranges of the chain's steps, in order
 STAGE_RANGES = ("binary.unpack", "binary.matmul", "binary.epilogue",
@@ -106,6 +111,7 @@ def _binary_scores(
         return scores.masked_fill_(~valid[None, :], NEG_INF)
 
 
+@perf_model.register_op("binary.scan_candidates")
 def binary_scan_candidates(
     queries: torch.Tensor,    # [B, d] f32
     planes: torch.Tensor,     # [N_pad, d/8] uint8 packed sign planes
@@ -136,15 +142,13 @@ def _mirror_rescore(
     storage: str,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Stage 1: rescore the stage-0 candidates against their int8 mirror
-    rows (gather, widen, batched product with the bf16-rounded queries at
-    f32: exact products) and keep the top r1."""
-    if storage != "int8":
-        raise NotImplementedError(
-            f"mirror storage {storage!r} is not ported yet (ROADMAP queue 1 "
-            f"item 3)")
+    rows, or their packed int4 rows unpacked (gather, widen, batched
+    product with the bf16-rounded queries at f32: exact products) and
+    keep the top r1."""
     with record_function("binary.rescore"):
         safe = torch.clamp(cand_i, 0, approx8.shape[0] - 1).long()
-        rows = approx8[safe].float()  # [B, r0, d]
+        rows = approx8[safe]  # [B, r0, w]
+        rows = (rows if storage == "int8" else unpack_int4(rows)).float()
         qb = queries.to(torch.bfloat16).float()
         dots = torch.bmm(rows, qb[:, :, None])[..., 0] * m_scale[safe]
         if metric is MetricType.L2:
@@ -159,6 +163,7 @@ def _mirror_rescore(
                                   torch.full_like(ids, -1))
 
 
+@perf_model.register_op("binary.refine_candidates")
 def binary_refine_candidates(
     queries: torch.Tensor,    # [B, d] f32
     planes: torch.Tensor,     # [N_pad, d/8] uint8
@@ -182,6 +187,7 @@ def binary_refine_candidates(
                            metric, storage)
 
 
+@perf_model.register_op("binary.refine_rerank")
 def binary_refine_rerank(
     queries: torch.Tensor,      # [B, d] f32
     planes: torch.Tensor,       # [N_pad, d/8] uint8

@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from vearch_tpu_torch.ops import perf_model
 from vearch_tpu_torch.ops._cuda_build import CudaLibrary, count_launch
 from vearch_tpu_torch.ops.distance import NEG_INF, sqnorms, stable_topk
 
@@ -106,6 +107,7 @@ def _check_stage1_inputs(qb, approx8, scale, vsq, valid, qsq) -> None:
         raise ValueError(f"qsq must be [{b}]")
 
 
+@perf_model.register_op("kernel.int8_blockmax_stage1")
 def int8_blockmax_stage1(
     qb: torch.Tensor,
     approx8: torch.Tensor,

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from vearch_tpu_torch.engine.types import MetricType
+from vearch_tpu_torch.ops.perf_model import register_op
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -78,6 +79,7 @@ def to_device_mask(valid_mask, n: int, cap: int,
     return torch.from_numpy(v).to(device)
 
 
+@register_op("distance.similarity_scores")
 def similarity_scores(
     queries: torch.Tensor,
     base: torch.Tensor,
@@ -108,6 +110,7 @@ def score_to_metric(scores, metric: MetricType):
     return scores
 
 
+@register_op("distance.masked_topk")
 def masked_topk(
     scores: torch.Tensor, valid: torch.Tensor | None, k: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -128,6 +131,7 @@ def masked_topk(
     return top_s, top_i
 
 
+@register_op("distance.brute_force_search")
 def brute_force_search(
     queries: torch.Tensor,
     base: torch.Tensor,

@@ -28,9 +28,14 @@ reranks them exactly against the raw store:
 - `select_topk_scores`: the reference's form of that selection, over a
   materialised [B, N] score matrix; the binary stage 0
   (`ops/binary_scan.py`) selects through it.
+- `int4_scan_candidates`: the int4 mirror's full scan (`unpack_int4`,
+  then an f32 product of the bf16-rounded queries with the unpacked
+  values, which is exact, and `select_topk_scores` over the [B, N]
+  matrix): plain PyTorch, as the reference's is plain XLA.
 - `exact_rerank`: candidate rows gathered from the raw store and
   re-scored at f32.
-- `int8_scan_rerank`: both, the reference's fused default path.
+- `int8_scan_rerank`: a scan and the rerank, the reference's fused
+  default path (`storage` picks the int8 or the int4 scan).
 
 The disk tier (index/disk.py) scans the probed slabs of the HBM bucket
 cache (index/hbm_cache.py) with `cached_bucket_scan` — through the
@@ -41,15 +46,24 @@ pin recompute) when a phase ledger is installed.
 
 All selections take the lower index first among ties (`stable_topk`),
 which is the `jax.lax.top_k` order.
+
+Dispatch observation: `note_dispatch` feeds the optional process-wide
+ledger, the optional dispatch observer (obs/accounting installs one, so
+per-space dispatch counts reconcile with the ledger) and the calling
+thread's per-request capture (`begin_capture` / `capture_mark` /
+`end_capture`), which the engine folds into `trace["dispatches"]`.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 
 import torch
+from torch.profiler import record_function
 
 from vearch_tpu_torch.engine.types import MetricType
+from vearch_tpu_torch.ops import perf_model
 from vearch_tpu_torch.ops.blockmax_scan import (
     BLOCK,
     blockmax_stage2,
@@ -74,10 +88,93 @@ def set_dispatch_ledger(ledger: list | None) -> None:
         _dispatch_ledger = ledger
 
 
+# Optional dispatch observer (obs/accounting installs one): called as
+# observer(tag) from the same note_dispatch call that feeds the ledger
+# and the per-request capture.
+_dispatch_observer = None
+
+
+def set_dispatch_observer(fn) -> None:
+    """Install (or clear, with None) the process-wide dispatch observer."""
+    global _dispatch_observer
+    _dispatch_observer = fn
+
+
+# Per-request dispatch capture: a thread-local recorder beside the
+# process-wide ledger. The engine installs one per traced search, so the
+# trace reports which search programs this request ran and how long each
+# took on the host's clock, without touching the index call sites. A
+# tag's window closes at the next note_dispatch or at capture_mark() /
+# end_capture().
+_capture_tls = threading.local()
+
+
+class DispatchCapture:
+    __slots__ = ("events", "tier_phases", "stage_phases")
+
+    def __init__(self) -> None:
+        # [tag, start_monotonic_s, end_monotonic_s | None]
+        self.events: list[list] = []
+        # (name, start, end) host windows of the tiered storage path and
+        # of the three-stage chain (the reference's mesh windows have no
+        # path on one device)
+        self.tier_phases: list[tuple[str, float, float]] = []
+        self.stage_phases: list[tuple[str, float, float]] = []
+
+    def note(self, tag: str) -> None:
+        now = time.monotonic()
+        if self.events and self.events[-1][2] is None:
+            self.events[-1][2] = now
+        self.events.append([tag, now, None])
+
+    def mark(self) -> None:
+        """Close the open dispatch window."""
+        if self.events and self.events[-1][2] is None:
+            self.events[-1][2] = time.monotonic()
+
+    @property
+    def tags(self) -> list[str]:
+        return [e[0] for e in self.events]
+
+
+def begin_capture() -> DispatchCapture:
+    cap = DispatchCapture()
+    _capture_tls.capture = cap
+    return cap
+
+
+def capture_mark() -> None:
+    cap = getattr(_capture_tls, "capture", None)
+    if cap is not None:
+        cap.mark()
+
+
+def end_capture() -> DispatchCapture | None:
+    cap = getattr(_capture_tls, "capture", None)
+    _capture_tls.capture = None
+    if cap is not None:
+        cap.mark()
+    return cap
+
+
 def note_dispatch(tag: str) -> None:
     with _ledger_lock:
         if _dispatch_ledger is not None:
             _dispatch_ledger.append(tag)
+    obs = _dispatch_observer
+    if obs is not None:
+        obs(tag)
+    cap = getattr(_capture_tls, "capture", None)
+    if cap is not None:
+        cap.note(tag)
+
+
+def note_stage_phase(name: str, t0: float, t1: float) -> None:
+    """Record a host window of the three-stage chain on the calling
+    thread's capture (a no-op without one)."""
+    cap = getattr(_capture_tls, "capture", None)
+    if cap is not None:
+        cap.stage_phases.append((name, t0, t1))
 
 
 # Optional tier-phase ledger: when a list is installed here, the tiered
@@ -94,10 +191,14 @@ def set_tier_phase_ledger(ledger: list | None) -> None:
 
 def note_tier_phase(name: str, t0: float, t1: float) -> None:
     """Record a host-side window of the tiered-storage serving path
-    (demand slab fetch, prefetch scheduling, pin-set recompute)."""
+    (demand slab fetch, prefetch scheduling, pin-set recompute) in the
+    ledger and on the calling thread's capture."""
     with _ledger_lock:
         if _tier_phase_ledger is not None:
             _tier_phase_ledger.append((name, t0, t1))
+    cap = getattr(_capture_tls, "capture", None)
+    if cap is not None:
+        cap.tier_phases.append((name, t0, t1))
 
 
 def coarse_dots(queries: torch.Tensor, centroids: torch.Tensor
@@ -159,6 +260,7 @@ def _mask_slots(scores, ids, valid):
     return torch.where(ok, scores, torch.full_like(scores, NEG_INF))
 
 
+@perf_model.register_op("ivf.ivfflat_candidates")
 def ivfflat_candidates(
     queries: torch.Tensor,        # [B, d] store dtype
     centroids: torch.Tensor,      # [nlist, d] f32
@@ -190,6 +292,7 @@ def ivfflat_candidates(
     return _probe_loop(queries, probes, r, step)
 
 
+@perf_model.register_op("ivf.ivfpq_candidates")
 def ivfpq_candidates(
     queries: torch.Tensor,        # [B, d] f32
     centroids: torch.Tensor,      # [nlist, d] f32
@@ -327,6 +430,7 @@ def select_topk_scores(
                               torch.full_like(ids, -1))
 
 
+@perf_model.register_op("ivf.int8_scan_candidates")
 def int8_scan_candidates(
     queries: torch.Tensor,  # [B, d] f32
     approx8: torch.Tensor,  # [N_pad, d] int8 docid-ordered mirror
@@ -343,6 +447,66 @@ def int8_scan_candidates(
                         topk_mode, metric is MetricType.L2)
 
 
+#: profiler ranges of the int4 full scan, in order (`int8_scan_rerank`
+#: with storage "int4"): chip_smoke.py splits a search's device time by
+#: them
+INT4_RANGES = ("int4.unpack", "int4.matmul", "int4.epilogue",
+               "int4.select", "rerank")
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """[N, d/2] uint8 nibble-packed -> [N, d] int8 signed values in
+    [-8, 7]. Layout contract (index/int8_mirror.py quantize_rows_int4):
+    dims [0, d/2) in the low nibble, [d/2, d) in the high one."""
+    lo = (packed & 0xF).to(torch.int8)
+    hi = (packed >> 4).to(torch.int8)
+    lo = lo - (lo > 7).to(torch.int8) * 16
+    hi = hi - (hi > 7).to(torch.int8) * 16
+    return torch.cat([lo, hi], dim=-1)
+
+
+@perf_model.register_op("ivf.int4_scan_candidates")
+def int4_scan_candidates(
+    queries: torch.Tensor,  # [B, d] f32
+    packed4: torch.Tensor,  # [N_pad, d/2] uint8 nibble-packed int4 rows
+    scale: torch.Tensor,    # [N_pad] f32 per-row dequant scale
+    vsq: torch.Tensor,      # [N_pad] f32 ||approx||^2
+    valid: torch.Tensor,    # [N_pad] bool
+    r: int,
+    metric: MetricType = MetricType.L2,
+    topk_mode: str = "auto",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int4 mirror's full scan + top-r ([B, r] f32 scores, [B, r]
+    int32 docids, -1 for masked), through the materialised [B, N_pad]
+    score matrix and the reference's selection (`select_topk_scores`).
+
+    The scores are bf16 q . int4 row at f32, x scale, L2/IP, -inf where
+    masked. Every product of a bf16 value and an int4 value is exact in
+    f32, so the matrix is the reference's `preferred_element_type=f32`
+    product up to the order of the sums over d; TF32 must be off for
+    that (it would round the queries to 10 bits of mantissa). The
+    epilogue runs in place on the matrix, in the reference's operation
+    order."""
+    if queries.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("the int4 scan needs exact f32 products: "
+                           "torch.backends.cuda.matmul.allow_tf32 is on")
+    queries = queries.float()
+    with record_function("int4.unpack"):
+        vals = unpack_int4(packed4).float()  # [N, d]
+    with record_function("int4.matmul"):
+        scores = torch.matmul(queries.to(torch.bfloat16).float(), vals.T)
+    del vals
+    with record_function("int4.epilogue"):
+        scores.mul_(scale[None, :])
+        if metric is MetricType.L2:
+            scores.mul_(-2.0).add_(sqnorms(queries)[:, None])
+            scores.add_(vsq[None, :]).neg_()
+        scores.masked_fill_(~valid[None, :], NEG_INF)
+    with record_function("int4.select"):
+        return select_topk_scores(scores, r, topk_mode)
+
+
+@perf_model.register_op("ivf.exact_rerank")
 def exact_rerank(
     queries: torch.Tensor,      # [B, d] (store dtype)
     cand_ids: torch.Tensor,     # [B, r] int32 (-1 padding)
@@ -371,6 +535,7 @@ def exact_rerank(
     return top_s, torch.gather(cand_ids, 1, pos)
 
 
+@perf_model.register_op("ivf.exact_rerank_gathered")
 def exact_rerank_gathered(
     queries: torch.Tensor,    # [B, d] f32
     cand_ids: torch.Tensor,   # [B, r] int32 (-1 padding)
@@ -397,6 +562,7 @@ def exact_rerank_gathered(
     return top_s, torch.gather(cand_ids, 1, pos)
 
 
+@perf_model.register_op("ivf.cached_bucket_scan")
 def cached_bucket_scan(
     queries: torch.Tensor,      # [B, d] f32
     pool8: torch.Tensor,        # [slots, cap, d] int8 (HBM bucket cache)
@@ -479,6 +645,7 @@ def cached_bucket_scan_dots(
                               torch.full_like(top_i, -1))
 
 
+@perf_model.register_op("ivf.int8_scan_rerank")
 def int8_scan_rerank(
     queries: torch.Tensor,      # [B, d] f32
     approx8: torch.Tensor,
@@ -492,11 +659,17 @@ def int8_scan_rerank(
     scan_metric: MetricType = MetricType.L2,
     rerank_metric: MetricType = MetricType.L2,
     topk_mode: str = "auto",
+    storage: str = "int8",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Compressed scan + exact rerank; only the final [B, k] pair leaves
     the device. scan_metric is the compressed-domain metric (cosine scans
-    as IP on pre-normalized rows), rerank_metric the user-facing one."""
-    _, cand_i = int8_scan_candidates(queries, approx8, row_scale, row_vsq,
-                                     valid, r, scan_metric, topk_mode)
-    return exact_rerank(queries.to(base.dtype), cand_i, base, base_sqnorm,
-                        k, rerank_metric)
+    as IP on pre-normalized rows), rerank_metric the user-facing one;
+    `storage` is the mirror's ("int8", or "int4" with approx8 the
+    [N_pad, d/2] packed rows)."""
+    scan = int8_scan_candidates if storage == "int8" \
+        else int4_scan_candidates
+    _, cand_i = scan(queries, approx8, row_scale, row_vsq, valid, r,
+                     scan_metric, topk_mode)
+    with record_function("rerank"):
+        return exact_rerank(queries.to(base.dtype), cand_i, base,
+                            base_sqnorm, k, rerank_metric)

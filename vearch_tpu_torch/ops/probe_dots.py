@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from vearch_tpu_torch.ops import perf_model
 from vearch_tpu_torch.ops._cuda_build import CudaLibrary, count_launch
 from vearch_tpu_torch.ops.distance import NEG_INF, sqnorms, stable_topk
 from vearch_tpu_torch.ops.ivf import coarse_dots, select_probes
@@ -121,6 +122,7 @@ def _check_inputs(qb, probes, buckets, lens) -> None:
         raise ValueError(f"a probe id is >= nlist={nlist}")
 
 
+@perf_model.register_op("kernel.ivf_probe_dots")
 def ivf_probe_dots(
     qb: torch.Tensor,       # [B, d] bf16
     probes: torch.Tensor,   # [B, nprobe] int32, < 0 for a padded slot

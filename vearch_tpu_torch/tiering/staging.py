@@ -18,7 +18,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vearch_tpu_torch.ops import perf_model
 
+
+@perf_model.register_op("tiering.scatter_slabs")
 def scatter_slabs(
     pools: tuple[torch.Tensor, ...],  # (pool8, scale, vsq, ids), in place
     slabs: tuple[np.ndarray, ...],    # host [m, cap, ...], pools' order
