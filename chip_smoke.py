@@ -141,6 +141,28 @@ Phases:
    probe regime at nprobe 64 through the probe-dots kernel, recall@10
    >= 0.95 in both), IVFRABITQ with an int4 stage-1 tier (three-stage,
    rerank 256, recall@10 >= 0.95).
+9. The cluster plane (`phase_cluster`): first one Engine of the main
+   path's first CLUSTER_ROWS rows, index and width with an INVERTED `cat`
+   field (the yardstick), then `StandaloneCluster(n_ps=3)` with no device
+   argument (every partition server's engines on the card) driven
+   through the port's SDK: a space of 2 partitions x 3 replicas, the
+   rows upserted through the router in 5,000-doc requests (doc counts
+   equal on every replica, summing to the rows), every replica built
+   (the leaders through the router's /index/forcemerge, the followers
+   one at a time through /ps/index/build); B=1024 searches through the
+   router (a warm-up, then the median of 3): the full scan at rerank 512
+   (topk_mode "blockmax", REDUCED) with recall@10 >= 0.95 against exact
+   f32, at rerank 128, the probe regime at nprobe 64, a filtered search
+   (cat < 10) against the exact filtered oracle; 60 B=1 searches (p50,
+   p99); one profiled search (router, partition servers, engines); the
+   device samplers; gated searches while a second client re-upserts
+   CLUSTER_WRITES docs; then the partition server leading partition 0
+   stops, a new leader must be named within 120 s, and the gated search
+   must keep recall@10 >= 0.95 (ids before and after compared). Each
+   path's launches are set to 0 just before it and read just after; the
+   full scans must launch the block-max kernel and the probe path the
+   probe-dots kernel. The cluster stops and the card is emptied before
+   the footprint table.
 
 Before the last three lines comes each kernel's time before its redesign,
 quoted from PERF.md and labelled so. The last three lines are the card's
@@ -178,6 +200,7 @@ F32_U = 2.0 ** -24  # unit roundoff of f32
 GRAPH_ROWS, GRAPH_B = 20_000, 64  # HNSW graph mode (host build), reduced
 HNSWQ_ROWS = 200_000  # IVFPQ + HNSW coarse quantizer (per_index.py's n)
 FLAT_DISK_B = 64  # queries of the streaming FLAT scan on a disk store
+CLUSTER_ROWS = 200_000  # rows served by phase_cluster, reduced
 # phase_family's and phase_disk's cuts of scale, each with its reason
 REDUCED = {
     "hnsw_graph": f"{GRAPH_ROWS} rows, {GRAPH_B} queries: the graph is "
@@ -191,6 +214,15 @@ REDUCED = {
     "hnsw_disk": f"{GRAPH_ROWS} rows, {GRAPH_B} queries, as hnsw_graph: "
                  "the graph that auto picks on a disk store is the same "
                  "single-threaded host build",
+    "cluster": f"{CLUSTER_ROWS} rows (the main path's first), 2 "
+               "partitions x 3 replicas: every doc crosses the router and the "
+               "raft log of 3 replicas as JSON on one Python process "
+               "(824-1259 docs/s on the chip machine's hosts), so a 1M-row "
+               "ingest does not fit the run's time limit. Its rerank-512 "
+               "full scans name topk_mode 'blockmax': at 100k rows a "
+               "partition the 'auto' gate (blocks >= 4 x max(32, rerank / "
+               "4)) would select exactly, where the main path's 1M rows "
+               "select by block maxima",
 }
 # each kernel's B=1024 time before its redesign, quoted from PERF.md
 # section 6 (not measured by this script): the CUDA-core block-max
@@ -773,9 +805,10 @@ def phase_main(dev, base, queries):
     return out, truth, mirror, valid, index
 
 
-def exact_topk(dev, queries, base, metric, k=10):
+def exact_topk(dev, queries, base, metric, k=10, valid=None):
     """Exact top-k row ids [B, k] on the card (f32, TF32 off), 128
-    queries at a time."""
+    queries at a time; only rows where `valid` (bool [N]) is set, when
+    given."""
     import torch
 
     from vearch_tpu_torch.ops.distance import similarity_scores
@@ -783,9 +816,13 @@ def exact_topk(dev, queries, base, metric, k=10):
     base_d = torch.from_numpy(np.ascontiguousarray(base)).to(dev)
     base_sq = (base_d.float() ** 2).sum(1)
     q_d = torch.from_numpy(np.ascontiguousarray(queries)).to(dev)
-    out = [torch.topk(similarity_scores(q_d[lo:lo + 128], base_d, metric,
-                                        base_sq), k, dim=1).indices
-           for lo in range(0, q_d.shape[0], 128)]
+    mask = None if valid is None else torch.from_numpy(valid).to(dev)
+    out = []
+    for lo in range(0, q_d.shape[0], 128):
+        s = similarity_scores(q_d[lo:lo + 128], base_d, metric, base_sq)
+        if mask is not None:
+            s = torch.where(mask[None, :], s, torch.full_like(s, -np.inf))
+        out.append(torch.topk(s, k, dim=1).indices)
     return torch.cat(out).cpu().numpy()
 
 
@@ -2402,6 +2439,385 @@ def phase_storage_modes(dev, base, queries, truth, ivfpq) -> tuple:
     return out, paths
 
 
+# -- phase 9: the cluster plane ------------------------------------------------
+
+CLUSTER_BATCH = 5_000  # docs a router upsert
+CLUSTER_B1 = 60  # B=1 searches behind the REST latency's p50 / p99
+CLUSTER_FILTER = {"operator": "AND", "conditions": [
+    {"field": "cat", "operator": "<", "value": 10}]}
+CLUSTER_WRITES = 10_000  # docs the concurrent writer re-upserts
+# the gated full scan, selecting by block maxima as the main path's 1M
+# rows do under "auto" (REDUCED["cluster"])
+CLUSTER_GATED = dict(GATED_PARAMS, topk_mode="blockmax")
+CLUSTER_REQUESTS = {
+    "full_rerank512": CLUSTER_GATED,
+    "full_rerank128": BENCH_PARAMS,
+    "probe_rerank512": dict(PROBE_PARAMS, **GATED_PARAMS),
+}
+
+
+def cluster_space(d=128) -> dict:
+    """The main path's index at full width behind 2 partitions x 3
+    replicas, with one scalar field for a filtered search."""
+    params = {"ncentroids": 2048, "nsubvector": 32, "train_iters": 8,
+              "training_threshold": 10 ** 9, "store_dtype": "bfloat16"}
+    return {"name": "s", "partition_num": 2, "replica_num": 3, "fields": [
+        {"name": "emb", "data_type": "vector", "dimension": d,
+         "index": {"index_type": "IVFPQ", "metric_type": "L2",
+                   "params": params}},
+        {"name": "cat", "data_type": "integer", "scalar_index": "INVERTED"},
+    ]}
+
+
+def router_search(cl, queries, params, **kw):
+    """One search through the router: (ids [B][k] as row numbers, wall
+    ms). B > 1 rides the columnar wire (scores as one f32 buffer)."""
+    if len(queries) > 1:
+        kw.update(fields=[], columnar=True)
+    t0 = time.monotonic()
+    out = cl.search("db", "s", [{"field": "emb", "feature": queries}],
+                    limit=10, index_params=params, cache=False, **kw)
+    ms = (time.monotonic() - t0) * 1e3
+    return [[int(h["_id"][1:]) for h in row] for row in out], ms
+
+
+def cluster_recall(ids, truth) -> float:
+    return sum(len(set(g) & set(t.tolist()))
+               for g, t in zip(ids, truth)) / truth.size
+
+
+def cluster_path(cl, queries, params, truth, kernel, **kw) -> tuple:
+    """A warm-up, then 3 searches through the router (the median's ms),
+    with the kernels' launches set to 0 just before the measured
+    searches and read just after; `kernel` must have launched."""
+    router_search(cl, queries, params, **kw)
+    reset_launches()
+    times = []
+    for _ in range(3):
+        ids, ms = router_search(cl, queries, params, **kw)
+        times.append(ms)
+    out = {"params": params, "B": len(queries),
+           "search_ms": float(np.median(times)), "all_ms": times,
+           "recall_at_10": cluster_recall(ids, truth),
+           "launches": read_launches()}
+    check(out["launches"][kernel] > 0,
+          f"cluster path {params} never launched {kernel}")
+    return out, ids
+
+
+def cluster_engine_alone(base, cats, queries, truth) -> dict:
+    """The same rows, index and requests on one Engine, no cluster: the
+    yardstick for the router's and the partition servers' overhead."""
+    from vearch_tpu_torch.engine.engine import Engine
+    from vearch_tpu_torch.engine.types import TableSchema
+
+    eng = Engine(TableSchema.from_dict(cluster_space(base.shape[1])))
+    for i in range(0, len(base), 100_000):
+        eng.upsert([{"_id": f"d{j}", "emb": base[j], "cat": int(cats[j])}
+                    for j in range(i, min(i + 100_000, len(base)))])
+    eng.build_index()
+    out = {}
+    for name, params in CLUSTER_REQUESTS.items():
+        req = engine_request(queries, params)
+        eng.search(req)
+        times = []
+        for _ in range(3):
+            t0 = time.monotonic()
+            res = eng.search(req)
+            times.append((time.monotonic() - t0) * 1e3)
+        out[name] = {"search_ms": float(np.median(times)),
+                     "recall_at_10": recall_at_10(res, truth)}
+    b1 = []
+    req = engine_request(queries[:1], CLUSTER_GATED, raw_results=False)
+    eng.search(req)
+    for i in range(CLUSTER_B1):
+        t0 = time.monotonic()
+        eng.search(engine_request(queries[i:i + 1], CLUSTER_GATED,
+                                  raw_results=False))
+        b1.append((time.monotonic() - t0) * 1e3)
+    out["b1_p50_ms"] = float(np.percentile(b1, 50))
+    out["b1_p99_ms"] = float(np.percentile(b1, 99))
+    eng.close()
+    del eng
+    release_device_memory()
+    return out
+
+
+def cluster_counts(c) -> dict:
+    """Each partition's doc count on each of its replicas (node id ->
+    count)."""
+    out = {}
+    for ps in c.ps_nodes:
+        for pid, eng in list(ps.engines.items()):
+            out.setdefault(str(pid), {})[str(ps.node_id)] = eng.doc_count
+    return out
+
+
+def cluster_build(c, cl) -> dict:
+    """Every replica builds its own index: the leaders through the
+    router's build route (/index/forcemerge, one partition server each,
+    at once), then each follower through its partition server's
+    /ps/index/build, one at a time. Seconds of each step."""
+    from vearch_tpu_torch.cluster import rpc
+
+    sp = cl.get_space("db", "s")
+    leaders = {p["id"]: p["leader"] for p in sp["partitions"]}
+    t0 = time.monotonic()
+    rpc.call(c.router_addr, "POST", "/index/forcemerge",
+             {"db_name": "db", "space_name": "s"}, timeout=900.0)
+    out = {"leaders_s": time.monotonic() - t0, "followers_s": []}
+    for ps in c.ps_nodes:
+        for pid in sorted(ps.engines):
+            if leaders[pid] != ps.node_id:
+                t1 = time.monotonic()
+                rpc.call(ps.addr, "POST", "/ps/index/build",
+                         {"partition_id": pid}, timeout=900.0)
+                out["followers_s"].append(time.monotonic() - t1)
+    out["total_s"] = time.monotonic() - t0
+    for ps in c.ps_nodes:
+        for pid, eng in ps.engines.items():
+            check(int(eng.status) == 3 and eng.indexes["emb"].trained,
+                  f"partition {pid} on node {ps.node_id} not built")
+    return out
+
+
+def cluster_concurrent_writer(c, cl, rows, cats, queries, truth) -> dict:
+    """Gated searches through the router, one after another, while a
+    second client re-upserts CLUSTER_WRITES existing docs (the same
+    vectors and fields, 500 a request) through it: the raft apply
+    threads, the refresh loops' absorbs and the search threads share the
+    engines on one card. Recall must hold in every search and every
+    replica must still count the same docs."""
+    import threading
+
+    from vearch_tpu_torch.sdk.client import VearchClient
+
+    errors: list = []
+    writes = min(CLUSTER_WRITES, len(rows) // 500 * 500)
+
+    def writer():
+        wc = VearchClient(c.router_addr)
+        try:
+            for lo in range(0, writes, 500):
+                wc.upsert("db", "s", [{"_id": f"d{i}", "emb": rows[i],
+                                       "cat": int(cats[i])}
+                                      for i in range(lo, lo + 500)])
+        except Exception as e:  # reported and failed below
+            errors.append(repr(e))
+
+    router_search(cl, queries, CLUSTER_GATED)
+    reset_launches()
+    t = threading.Thread(target=writer, name="cluster-writer", daemon=True)
+    t0 = time.monotonic()
+    t.start()
+    times, recalls = [], []
+    while t.is_alive() or not times:
+        ids, ms = router_search(cl, queries, CLUSTER_GATED)
+        times.append(ms)
+        recalls.append(cluster_recall(ids, truth))
+    t.join()
+    res = {"params": CLUSTER_GATED, "B": len(queries),
+           "searches": len(times), "search_ms": float(np.median(times)),
+           "all_ms": times, "recall_at_10": min(recalls),
+           "launches": read_launches()}
+    writes_s = time.monotonic() - t0
+    counts = cluster_counts(c)
+    out = {"rewritten_docs": writes, "writes_s": writes_s,
+           "search": res, "doc_counts": counts}
+    check(not errors, f"concurrent writer failed: {errors}")
+    check(res["launches"]["int8_blockmax_scan"] > 0,
+          "searches under a writer never launched the block-max kernel")
+    check(res["recall_at_10"] >= 0.95,
+          f"recall@10 under a writer {res['recall_at_10']} < 0.95")
+    check(all(len(set(r.values())) == 1 for r in counts.values())
+          and sum(next(iter(r.values())) for r in counts.values())
+          == len(rows), f"doc counts under a writer {counts}")
+    return out
+
+
+def cluster_failover(c, cl, queries, truth, before) -> dict:
+    """Stop the partition server that leads partition 0, wait (with a
+    deadline) until the master names another leader, then search again
+    at rerank 512 through the promoted leader."""
+    sp = cl.get_space("db", "s")["partitions"]
+    part0 = min(sp, key=lambda p: p["id"])
+    dead = part0["leader"]
+    victim = next(ps for ps in c.ps_nodes if ps.node_id == dead)
+    t0 = time.monotonic()
+    victim.stop(flush=False)
+    deadline = t0 + 120.0
+    leader = dead
+    while time.monotonic() < deadline:
+        parts = cl.get_space("db", "s")["partitions"]
+        leader = next(p for p in parts if p["id"] == part0["id"])["leader"]
+        if leader not in (dead, -1):
+            break
+        time.sleep(0.1)
+    promoted_s = time.monotonic() - t0
+    check(leader not in (dead, -1),
+          f"no new leader for partition {part0['id']} within 120 s")
+    while True:  # the router's view of the new leader, with a deadline
+        try:
+            router_search(cl, queries[:1], CLUSTER_GATED)
+            break
+        except Exception:
+            check(time.monotonic() < deadline,
+                  "no search served after the failover within 120 s")
+            time.sleep(0.1)
+    serving_s = time.monotonic() - t0
+    res, ids = cluster_path(cl, queries, CLUSTER_GATED, truth,
+                            "int8_blockmax_scan")
+    diff = sum(a != b for a, b in zip(ids, before))
+    out = {"partition": part0["id"], "stopped_node": dead,
+           "new_leader": leader, "leader_promoted_s": promoted_s,
+           "first_search_served_s": serving_s, "search": res,
+           "ids_equal_before": diff == 0, "rows_differing": diff}
+    check(res["recall_at_10"] >= 0.95,
+          f"recall@10 after failover {res['recall_at_10']} < 0.95")
+    return out
+
+
+def phase_cluster(dev, base, queries) -> tuple[dict, dict]:
+    """The port's cluster plane on the card: StandaloneCluster (master,
+    router, 3 partition servers, no device argument: the card), driven
+    through the port's SDK."""
+    from vearch_tpu_torch.cluster.standalone import StandaloneCluster
+    from vearch_tpu_torch.engine.types import MetricType
+    from vearch_tpu_torch.sdk.client import VearchClient
+
+    n = CLUSTER_ROWS
+    rows = base[:n]
+    cats = engine_docs(rows, seed=12)[0]
+    truth = exact_topk(dev, queries, rows, MetricType.L2)
+    times, out, paths = {}, {"rows": n, "reduced": REDUCED["cluster"]}, {}
+    t0 = time.monotonic()
+    alone = cluster_engine_alone(rows, cats, queries, truth)
+    out["engine_alone"] = alone
+    times["engine_alone"] = time.monotonic() - t0
+    print("cluster_engine_alone " + json.dumps(alone), flush=True)
+
+    data_dir = tempfile.mkdtemp(prefix="vearch_chip_cluster_")
+    c = StandaloneCluster(data_dir=data_dir, n_ps=3,
+                          ps_kwargs={"heartbeat_interval": 0.3})
+    try:
+        t0 = time.monotonic()
+        c.start()
+        for ps in c.ps_nodes:
+            check(ps.device.type == "cuda",
+                  "a partition server did not default to cuda")
+        cl = VearchClient(c.router_addr)
+        cl.create_database("db")
+        cl.create_space("db", cluster_space(base.shape[1]))
+        times["start"] = time.monotonic() - t0
+        # the SDK sends vectors as JSON lists: every raft entry is logged
+        # as JSON, so ndarray leaves cannot reach the partition servers
+        t0 = time.monotonic()
+        for i in range(0, n, CLUSTER_BATCH):
+            hi = min(i + CLUSTER_BATCH, n)
+            cl.upsert("db", "s", [{"_id": f"d{j}", "emb": rows[j],
+                                   "cat": int(cats[j])}
+                                  for j in range(i, hi)])
+            if hi % 100_000 == 0:
+                print(f"cluster: {hi} docs in "
+                      f"{time.monotonic() - t0:.1f}s", flush=True)
+        times["ingest"] = time.monotonic() - t0
+        out["ingest_docs_per_s"] = n / times["ingest"]
+        counts = cluster_counts(c)
+        out["doc_counts"] = counts
+        check(len(counts) == 2 and all(len(r) == 3 for r in counts.values()),
+              f"replicas {counts}")
+        check(all(len(set(r.values())) == 1 for r in counts.values()),
+              f"replicas disagree on doc counts {counts}")
+        check(sum(next(iter(r.values())) for r in counts.values()) == n,
+              f"partition doc counts {counts} do not sum to {n}")
+        print(f"cluster: ingest {times['ingest']:.1f}s "
+              f"({out['ingest_docs_per_s']:.0f} docs/s) counts "
+              + json.dumps(counts), flush=True)
+        t0 = time.monotonic()
+        out["build"] = cluster_build(c, cl)
+        times["build"] = time.monotonic() - t0
+        print("cluster_build " + json.dumps(out["build"]), flush=True)
+
+        t0 = time.monotonic()
+        kernels = {"full_rerank512": "int8_blockmax_scan",
+                   "full_rerank128": "int8_blockmax_scan",
+                   "probe_rerank512": "ivf_probe_dots"}
+        searches = {}
+        for name, params in CLUSTER_REQUESTS.items():
+            res, ids = cluster_path(cl, queries, params, truth,
+                                    kernels[name])
+            res["engine_alone_ms"] = alone[name]["search_ms"]
+            searches[name] = res
+            paths[name] = res
+            if name == "full_rerank512":
+                before = ids
+            print(f"cluster_search {name} " + json.dumps(res), flush=True)
+        check(searches["full_rerank512"]["recall_at_10"] >= 0.95,
+              "cluster recall@10 at rerank 512 "
+              f"{searches['full_rerank512']['recall_at_10']} < 0.95")
+        valid = cats < 10
+        ftruth = exact_topk(dev, queries, rows, MetricType.L2, valid=valid)
+        res, ids = cluster_path(cl, queries, CLUSTER_GATED, ftruth,
+                                "int8_blockmax_scan",
+                                filters=CLUSTER_FILTER)
+        check(all(len(r) == 10 and bool(valid[r].all()) for r in ids),
+              "a filtered search returned a short row or a failing doc")
+        check(res["recall_at_10"] >= 0.95,
+              f"filtered recall@10 {res['recall_at_10']} < 0.95")
+        searches["filtered_cat_lt_10"] = paths["filtered"] = res
+        print("cluster_search filtered " + json.dumps(res), flush=True)
+        # B=1: the latency a REST user feels (item dicts, not columnar)
+        router_search(cl, queries[:1], CLUSTER_GATED)
+        reset_launches()
+        b1 = [router_search(cl, queries[i:i + 1], CLUSTER_GATED)[1]
+              for i in range(CLUSTER_B1)]
+        searches["b1"] = paths["b1"] = {
+            "params": CLUSTER_GATED, "searches": CLUSTER_B1,
+            "p50_ms": float(np.percentile(b1, 50)),
+            "p99_ms": float(np.percentile(b1, 99)),
+            "engine_alone_p50_ms": alone["b1_p50_ms"],
+            "engine_alone_p99_ms": alone["b1_p99_ms"],
+            "launches": read_launches()}
+        check(searches["b1"]["launches"]["int8_blockmax_scan"] > 0,
+              "B=1 searches never launched the block-max kernel")
+        # the split of one gated search into router, partition servers
+        # and engines (profile: true), with every engine's rows on the card
+        t1 = time.monotonic()
+        prof = cl.search("db", "s", [{"field": "emb", "feature": queries}],
+                         limit=10, index_params=CLUSTER_GATED, cache=False,
+                         profile=True)
+        prof = dict(prof["profile"],
+                    wall_ms=(time.monotonic() - t1) * 1e3)
+        searches["profile_rerank512"] = prof
+        print("cluster_profile " + json.dumps(prof), flush=True)
+        out["searches"] = searches
+        # each server's sampler holds the card's process-wide allocated
+        # bytes against its own engines' footprint models only
+        out["sampler"] = {str(ps.node_id): ps.device_sampler.sample_now()
+                          for ps in c.ps_nodes}
+        print("cluster_sampler " + json.dumps(out["sampler"]), flush=True)
+        out["concurrent_writer"] = cw = cluster_concurrent_writer(
+            c, cl, rows, cats, queries, truth)
+        paths["concurrent_writer"] = cw["search"]
+        print("cluster_writer " + json.dumps(cw), flush=True)
+        times["searches"] = time.monotonic() - t0
+
+        t0 = time.monotonic()
+        out["failover"] = fo = cluster_failover(c, cl, queries, truth, before)
+        paths["failover"] = fo["search"]
+        times["failover"] = time.monotonic() - t0
+        print("cluster_failover " + json.dumps(fo), flush=True)
+    finally:
+        t0 = time.monotonic()
+        c.stop()
+        shutil.rmtree(data_dir, ignore_errors=True)
+        del c
+        release_device_memory()
+        times["stop"] = time.monotonic() - t0
+    out["seconds"] = times
+    return out, paths
+
+
 def profile_search(eng, req, ranges=()) -> dict:
     """Device time by kernel over one search (torch.profiler), the
     device's busy share of the search's wall time, and the device time
@@ -2480,14 +2896,15 @@ def read_launches() -> dict:
 
 
 def build_all() -> None:
-    """Build every kernel library (one nvcc per source) and the host HNSW
-    graph (g++), all at once."""
+    """Build every kernel library (one nvcc per source), the host HNSW
+    graph and the cluster plane's host loops (g++), all at once."""
+    from vearch_tpu_torch import native
     from vearch_tpu_torch.native import hnsw_graph
     from vearch_tpu_torch.ops import blockmax_scan as bms
     from vearch_tpu_torch.ops import probe_dots as pd
 
     kernels = (bms.LIBRARY, pd.LIBRARY)
-    libs = (*kernels, hnsw_graph.LIBRARY)
+    libs = (*kernels, hnsw_graph.LIBRARY, native.LIBRARY)
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(lib.load) for lib in libs]:
@@ -2606,9 +3023,13 @@ def main() -> int:
                                                  runtime["ivfpq"])
     print("storage " + json.dumps(storage), flush=True)
     print(f"phase storage_modes: {time.monotonic() - t0:.1f}s", flush=True)
+    t0 = time.monotonic()
+    cluster, cluster_paths = phase_cluster(dev, base, queries)
+    print("cluster " + json.dumps(cluster), flush=True)
+    print(f"phase cluster: {time.monotonic() - t0:.1f}s", flush=True)
     footprint_table()
     paths = dict(family, engine=engine_paths, **disk_paths, **runtime_paths,
-                 **storage_paths)
+                 **storage_paths, cluster=cluster_paths)
     dres = disk["kernel_case"]
     kernels = [
         {"name": "int8_blockmax_scan", "route": "cuda",

@@ -1,9 +1,10 @@
 """vearch_tpu_torch stands alone: importing every one of its modules,
 serving a bf16 disk store under DISKANN, and serving an int4-mirror and
 an OPQ IVFPQ index under the runtime layer (accountant, flight recorder,
-quality monitor, device sampler) pulls in neither JAX, nor anything of
-vearch_tpu, nor ml_dtypes (the GPU machine has none), and its entry
-points refuse to run on the CPU unless asked to."""
+quality monitor, device sampler), and serving a CPU cluster (master,
+router, partition servers) through the port's SDK pulls in neither JAX,
+nor anything of vearch_tpu, nor ml_dtypes (the GPU machine has none), and
+its entry points refuse to run on the CPU unless asked to."""
 
 import json
 import os
@@ -73,6 +74,32 @@ for extra in ({"mirror_dtype": "int4"}, {"opq": True, "opq_iters": 1}):
     mon.collect_health()
     sampler.DeviceSampler(e2.device_footprint_bytes).sample_now()
     e2.close()
+# the cluster plane: master, router and partition servers on the CPU,
+# driven through the port's SDK
+from vearch_tpu_torch.cluster.standalone import StandaloneCluster
+from vearch_tpu_torch.sdk.client import VearchClient
+cluster = StandaloneCluster(data_dir=tempfile.mkdtemp(), n_ps=2,
+                            ps_kwargs={"device": "cpu",
+                                       "heartbeat_interval": 0.3})
+cluster.start()
+try:
+    cl = VearchClient(cluster.router_addr)
+    cl.create_database("db")
+    cl.create_space("db", {"name": "s", "partition_num": 2,
+                           "replica_num": 2, "fields": [
+        {"name": "v", "data_type": "vector", "dimension": 8,
+         "index": {"index_type": "FLAT", "metric_type": "L2",
+                   "params": {}}}]})
+    vecs = np.arange(160, dtype=np.float32).reshape(20, 8)
+    cl.upsert("db", "s", [{"_id": f"d{i}", "v": vecs[i]} for i in range(20)])
+    served = cl.search("db", "s", [{"field": "v", "feature": vecs[7]}],
+                       limit=1)[0][0]["_id"]
+finally:
+    cluster.stop()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "vearch_tpu" or m.startswith("vearch_tpu.")
+             or m == "ml_dtypes" or m.startswith("ml_dtypes."))
 # the native HNSW graph loads the port's own build, never vearch_tpu's
 import os
 from vearch_tpu_torch.native.hnsw_graph import LIBRARY, HnswGraph
@@ -81,6 +108,7 @@ ref_pkg = os.path.join(os.getcwd(), "vearch_tpu") + os.sep
 loaded = sorted(getattr(m, "__file__", None) or "" for m in
                 list(sys.modules.values()))
 print(json.dumps({"modules": names, "bad": bad, "refused": refused,
+                  "served": served,
                   "hnsw": LIBRARY.path,
                   "from_ref": [f for f in loaded if f.startswith(ref_pkg)]}))
 """
@@ -123,9 +151,34 @@ def test_port_imports_no_jax_and_needs_explicit_cpu():
                 "vearch_tpu_torch.obs.flight_recorder",
                 "vearch_tpu_torch.obs.quality",
                 "vearch_tpu_torch.obs.quantiles",
-                "vearch_tpu_torch.obs.sampler"):
+                "vearch_tpu_torch.obs.sampler",
+                "vearch_tpu_torch.__main__",
+                "vearch_tpu_torch.native",
+                "vearch_tpu_torch.utils", "vearch_tpu_torch.utils.log",
+                "vearch_tpu_torch.tools.lockcheck",
+                "vearch_tpu_torch.sdk.client", "vearch_tpu_torch.sdk.objects",
+                "vearch_tpu_torch.cluster.admission",
+                "vearch_tpu_torch.cluster.auth",
+                "vearch_tpu_torch.cluster.config",
+                "vearch_tpu_torch.cluster.elastic",
+                "vearch_tpu_torch.cluster.entities",
+                "vearch_tpu_torch.cluster.grpc_server",
+                "vearch_tpu_torch.cluster.hashing",
+                "vearch_tpu_torch.cluster.master",
+                "vearch_tpu_torch.cluster.metastore",
+                "vearch_tpu_torch.cluster.metrics",
+                "vearch_tpu_torch.cluster.objectstore",
+                "vearch_tpu_torch.cluster.ps",
+                "vearch_tpu_torch.cluster.querycache",
+                "vearch_tpu_torch.cluster.raft",
+                "vearch_tpu_torch.cluster.router",
+                "vearch_tpu_torch.cluster.rpc",
+                "vearch_tpu_torch.cluster.standalone",
+                "vearch_tpu_torch.cluster.tracing",
+                "vearch_tpu_torch.cluster.wal"):
         assert mod in got["modules"]
     assert got["refused"] is True
+    assert got["served"] == "d7"
     assert got["from_ref"] == []
     assert got["hnsw"].startswith(
         os.path.join(REPO, "vearch_tpu_torch", "_build") + os.sep)

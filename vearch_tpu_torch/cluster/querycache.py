@@ -1,0 +1,262 @@
+"""Query-result caching primitives: canonical keys, a version-exact
+LRU, and single-flight coalescing.
+
+These back the multi-tier serving cache (see docs/PERF.md "Tier 4"):
+
+- the router keeps a :class:`VersionedLRUCache` of merged search
+  responses, where each entry records the per-partition **apply
+  version** (raft apply index) it was computed against — a write to
+  any touched partition bumps that partition's version and the entry
+  stops validating, so invalidation is exact (no TTL guessing, no
+  blanket flush, read-your-writes holds);
+- each PS keeps a per-partition result cache whose keys *embed* the
+  apply version, so stale entries simply age out of the LRU;
+- :class:`SingleFlight` coalesces N concurrent identical requests
+  into one computation at both tiers (one dispatch set, N responses).
+
+Everything here is pure data-structure code — no HTTP, no engine
+imports — so bench.py and unit tests can exercise it standalone.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import threading
+from collections import OrderedDict
+from typing import Any, Callable, Mapping
+
+import numpy as np
+
+from vearch_tpu_torch.tools import lockcheck
+
+__all__ = [
+    "canonical_query_key",
+    "VersionedLRUCache",
+    "SingleFlight",
+]
+
+
+def canonical_query_key(
+    space: str,
+    vectors: Mapping[str, Any],
+    k: int,
+    options: Mapping[str, Any] | None = None,
+) -> str:
+    """Canonical cache key for a search request.
+
+    Hashes the exact query-vector bytes (float32, [b, d] layout) per
+    field plus a sorted-JSON rendering of every result-shaping option
+    (k, filters, sort, include_fields, ...). Two requests share a key
+    iff the engine would compute byte-identical results for them, so
+    numeric jitter in a "similar" vector never aliases.
+    """
+    h = hashlib.sha256()
+    h.update(space.encode())
+    for name in sorted(vectors):
+        # lint: allow[host-sync] canonicalises the (host) query payload for byte-exact hashing, no device involved
+        arr = np.ascontiguousarray(np.asarray(vectors[name], np.float32))
+        h.update(name.encode())
+        h.update(str(arr.shape).encode())
+        h.update(arr.tobytes())
+    h.update(b"|k=%d|" % int(k))
+    if options:
+        # default=str keeps unhashable leaves (e.g. np scalars in
+        # score_bounds) from poisoning the key derivation
+        h.update(
+            json.dumps(options, sort_keys=True, default=str).encode()
+        )
+    return h.hexdigest()
+
+
+@lockcheck.guarded
+class VersionedLRUCache:
+    """Thread-safe LRU whose entries validate against data versions.
+
+    ``put(key, value, versions)`` records the version map the value was
+    computed against (for the router: ``{partition_id: apply_version}``).
+    ``get(key, current_versions)`` returns the value only when the
+    recorded map **exactly equals** the current one — any partition
+    that was written to since (version advanced), or any partition
+    added/removed from the space (key-set mismatch), invalidates the
+    entry. Invalidation is lazy: stale entries are dropped at lookup
+    (counted under ``invalidated``) or evicted by LRU pressure.
+
+    An optional ``ttl_s`` bounds entry age as a safety net for version
+    signals the router might miss (e.g. a partition served by a replica
+    it never heard from); version matching remains the primary gate.
+
+    ``stats`` pre-initializes every event key so metrics callbacks can
+    render the full label set from the first scrape (the cardinality
+    soak asserts zero series growth after warmup).
+    """
+
+    EVENTS = ("hit", "miss", "invalidated", "eviction", "bypass",
+              "coalesced")
+
+    # stats is mutated in place under _lock too; declaring it catches a
+    # future rebind (e.g. a reset that swaps the dict) done lock-free
+    _guarded_by = {"_data": "_lock", "stats": "_lock"}
+
+    def __init__(self, max_entries: int = 512, ttl_s: float = 0.0):
+        self.max_entries = int(max_entries)
+        self.ttl_s = float(ttl_s)
+        self._lock = lockcheck.make_lock("querycache.lru")
+        self._data: OrderedDict[str, tuple[Any, dict, float]] = (
+            OrderedDict()
+        )
+        self.stats: dict[str, int] = {e: 0 for e in self.EVENTS}
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._data)
+
+    def note(self, event: str, by: int = 1) -> None:
+        """Count an event that happens outside get/put (e.g. bypass,
+        coalesced) so one stats dict carries the whole story."""
+        with self._lock:
+            self.stats[event] = self.stats.get(event, 0) + by
+
+    def get(
+        self,
+        key: str,
+        current_versions: Mapping[Any, int] | None = None,
+        now: float | None = None,
+    ) -> Any | None:
+        import time as _time
+
+        t = _time.monotonic() if now is None else now
+        with self._lock:
+            ent = self._data.get(key)
+            if ent is None:
+                self.stats["miss"] += 1
+                return None
+            value, versions, stamp = ent
+            if self.ttl_s > 0 and (t - stamp) > self.ttl_s:
+                del self._data[key]
+                self.stats["invalidated"] += 1
+                self.stats["miss"] += 1
+                return None
+            if (current_versions is not None
+                    and dict(current_versions) != versions):
+                # exact invalidation: some touched partition applied a
+                # write (or the partition set changed) since this entry
+                # was computed
+                del self._data[key]
+                self.stats["invalidated"] += 1
+                self.stats["miss"] += 1
+                return None
+            self._data.move_to_end(key)
+            self.stats["hit"] += 1
+            return value
+
+    def put(
+        self,
+        key: str,
+        value: Any,
+        versions: Mapping[Any, int] | None = None,
+        now: float | None = None,
+    ) -> None:
+        import time as _time
+
+        if self.max_entries <= 0:
+            return
+        t = _time.monotonic() if now is None else now
+        with self._lock:
+            self._data[key] = (value, dict(versions or {}), t)
+            self._data.move_to_end(key)
+            while len(self._data) > self.max_entries:
+                self._data.popitem(last=False)
+                self.stats["eviction"] += 1
+
+    def evict_pids(self, pids) -> int:
+        """Drop every entry whose recorded version map touches any of
+        `pids` — the targeted invalidation for a partition-map remap
+        (split cutover / migration): only results computed against a
+        remapped partition are lost, the rest of the cache survives.
+        Counted under ``invalidated``; returns how many were dropped."""
+        doomed = set(pids)
+        if not doomed:
+            return 0
+        with self._lock:
+            stale = [k for k, (_, versions, _) in self._data.items()
+                     if doomed & set(versions)]
+            for k in stale:
+                del self._data[k]
+            self.stats["invalidated"] += len(stale)
+            return len(stale)
+
+    def clear(self) -> int:
+        with self._lock:
+            n = len(self._data)
+            self._data.clear()
+            return n
+
+
+class _Flight:
+    __slots__ = ("done", "value", "error", "waiters")
+
+    def __init__(self) -> None:
+        self.done = threading.Event()
+        self.value: Any = None
+        self.error: BaseException | None = None
+        self.waiters = 0
+
+
+@lockcheck.guarded
+class SingleFlight:
+    """Coalesce concurrent calls with the same key into one execution.
+
+    ``do(key, fn)`` returns ``(value, coalesced)`` — the first caller
+    runs ``fn`` (the *leader*); callers arriving while it runs block
+    and share the result with ``coalesced=True``. Errors propagate to
+    every waiter and nothing is memoized: the flight is forgotten the
+    moment the leader finishes, so a later call recomputes.
+    """
+
+    _guarded_by = {"_flights": "_lock"}
+
+    def __init__(self, timeout_s: float = 30.0):
+        self.timeout_s = float(timeout_s)
+        self._lock = lockcheck.make_lock("querycache.singleflight")
+        self._flights: dict[Any, _Flight] = {}
+
+    def waiters(self, key: Any) -> int:
+        """Blocked-follower count for `key` (tests use this to release
+        a stalled leader only once all N callers have coalesced)."""
+        with self._lock:
+            f = self._flights.get(key)
+            return f.waiters if f is not None else 0
+
+    def do(
+        self, key: Any, fn: Callable[[], Any]
+    ) -> tuple[Any, bool]:
+        with self._lock:
+            flight = self._flights.get(key)
+            if flight is not None:
+                flight.waiters += 1
+                leader = False
+            else:
+                flight = _Flight()
+                self._flights[key] = flight
+                leader = True
+        if not leader:
+            ok = flight.done.wait(self.timeout_s)
+            if not ok:
+                raise TimeoutError(
+                    f"single-flight wait for {key!r} exceeded "
+                    f"{self.timeout_s}s"
+                )
+            if flight.error is not None:
+                raise flight.error
+            return flight.value, True
+        try:
+            flight.value = fn()
+        except BaseException as e:
+            flight.error = e
+            raise
+        finally:
+            with self._lock:
+                self._flights.pop(key, None)
+            flight.done.set()
+        return flight.value, False

@@ -1,0 +1,691 @@
+"""JSON+binary-tensor RPC layer over HTTP (stdlib only).
+
+Plays the role of the reference's rpcx+protobuf transport (reference:
+internal/pkg/server/rpc/rpc_server.go:33 — custom codec, handler chains
+with panic recovery, per-handler timeouts). Control payloads are JSON;
+numpy arrays anywhere in a body are extracted into raw little-endian
+buffers appended after a JSON skeleton (`_encode`/`_decode`), so a
+[1024, 128] f32 query batch rides the wire as 512 KB of bytes instead
+of ~1.4 MB of parsed-float JSON — the reference's custom rpcx codec
+serves the same purpose for its vector payloads.
+
+Wire format (Content-Type: application/x-vearch-tensors):
+    [u32 header_len][header json][tensor 0 bytes][tensor 1 bytes]...
+header = {"body": <json, ndarray leaves replaced by {"__tensor__": i}>,
+          "tensors": [{"dtype", "shape"}, ...]}
+"""
+
+from __future__ import annotations
+
+import json
+import struct
+import threading
+import time
+import traceback
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Callable
+
+import numpy as np
+
+from vearch_tpu_torch.cluster.metrics import Registry, register_process_gauges
+from vearch_tpu_torch.utils import log
+
+_log = log.get("rpc")
+
+JSON_CT = "application/json"
+
+# Terminal per-request abort (deadline exceeded, slow-request killer,
+# operator /ps/kill). Distinct from the transient failover codes
+# (-1/421/503) so the router NEVER retries a killed request as if the
+# cluster were mid-failover — retrying would re-run the exact work the
+# kill was meant to shed. 499 follows the nginx "client closed request"
+# convention.
+ERR_REQUEST_KILLED = 499
+
+# Per-request context (the server is a ThreadingHTTPServer: one thread
+# per in-flight request). Handlers that make secondary RPCs on behalf of
+# the caller — e.g. a master follower forwarding a GET to the meta
+# leader — read the caller's credentials here so auth travels with the
+# forwarded call (reference: the BasicAuth header rides rpcx metadata).
+_request_ctx = threading.local()
+
+
+def current_auth_header() -> str | None:
+    """Authorization header of the request the current thread is
+    serving, or None outside a request."""
+    return getattr(_request_ctx, "auth", None)
+# v2: path-directed tensor restore (header carries "paths"). The BASE
+# name changes (not a suffix — v1 peers match with startswith, so any
+# "...tensors<suffix>" would still be claimed by them and silently
+# mis-restored): an old peer seeing v2 falls to json.loads and fails
+# loudly. THIS side still decodes v1 marker frames for the reverse skew.
+BIN_CT = "application/x-vtensors2"
+BIN_CT_V1 = "application/x-vearch-tensors"
+_U32 = struct.Struct("<I")
+
+
+def _extract_tensors(obj: Any, out: list, paths: list, path: tuple) -> Any:
+    """Replace ndarray leaves with null placeholders, collecting the
+    buffers and their key-paths (so restore navigates straight to each
+    tensor instead of walking the whole tree)."""
+    if isinstance(obj, np.ndarray):
+        out.append(obj)
+        paths.append(list(path))
+        return None
+    if isinstance(obj, dict):
+        # record the POST-JSON key (always a string): the decoded tree
+        # the paths navigate has stringified keys
+        return {k: _extract_tensors(v, out, paths, path + (str(k),))
+                for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_extract_tensors(v, out, paths, path + (i,))
+                for i, v in enumerate(obj)]
+    return obj
+
+
+def _probably_has_tensor(body: Any) -> bool:
+    """Shallow probe (two-ish levels) for ndarray leaves — catches the
+    hot shapes ({"scores": arr}, {"vectors": [{"feature": arr}]}) so
+    _encode skips the doomed json.dumps attempt instead of serializing
+    a large prefix just to throw it away."""
+    if isinstance(body, np.ndarray):
+        return True
+    if isinstance(body, dict):
+        vals = body.values()
+    elif isinstance(body, (list, tuple)):
+        vals = body[:4]
+    else:
+        return False
+    for v in vals:
+        if isinstance(v, np.ndarray):
+            return True
+        if isinstance(v, dict):
+            if any(isinstance(x, np.ndarray) for x in v.values()):
+                return True
+        elif isinstance(v, (list, tuple)):
+            if any(isinstance(x, (np.ndarray, dict))
+                   and _probably_has_tensor(x) for x in v[:4]):
+                return True
+    return False
+
+
+def _encode(body: Any) -> tuple[str, bytes]:
+    """JSON when tensor-free; binary framing otherwise. The tensor-free
+    case is detected by letting json.dumps fail on the first ndarray —
+    pure-JSON bodies (the vast majority of control traffic and most
+    responses) serialize at C speed with no Python tree walk."""
+    if not _probably_has_tensor(body):
+        try:
+            return JSON_CT, json.dumps(body).encode()
+        except TypeError:
+            pass  # a deeply nested tensor the probe missed
+    tensors: list[np.ndarray] = []
+    paths: list[list] = []
+    skeleton = _extract_tensors(body, tensors, paths, ())
+    arrays = [np.ascontiguousarray(t) for t in tensors]
+    header = json.dumps({
+        "body": skeleton,
+        "paths": paths,
+        "tensors": [
+            {"dtype": a.dtype.str, "shape": list(a.shape)} for a in arrays
+        ],
+    }).encode()
+    parts = [_U32.pack(len(header)), header]
+    parts.extend(a.tobytes() for a in arrays)
+    return BIN_CT, b"".join(parts)
+
+
+def _restore_markers_v1(obj: Any, tensors: list[np.ndarray]) -> Any:
+    """v1 compat: full-tree walk replacing {"__tensor__": i} markers."""
+    if isinstance(obj, dict):
+        if "__tensor__" in obj and len(obj) == 1:
+            return tensors[obj["__tensor__"]]
+        return {k: _restore_markers_v1(v, tensors) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_restore_markers_v1(v, tensors) for v in obj]
+    return obj
+
+
+def _decode(content_type: str, raw: bytes) -> Any:
+    if not raw:
+        return None
+    if not (content_type.startswith(BIN_CT)
+            or content_type.startswith(BIN_CT_V1)):
+        return json.loads(raw)
+    hlen = _U32.unpack_from(raw, 0)[0]
+    header = json.loads(raw[4 : 4 + hlen])
+    off = 4 + hlen
+    tensors = []
+    for meta in header["tensors"]:
+        dt = np.dtype(meta["dtype"])
+        n = int(np.prod(meta["shape"], dtype=np.int64)) if meta["shape"] \
+            else 1
+        nbytes = n * dt.itemsize
+        arr = np.frombuffer(raw, dtype=dt, count=n, offset=off).reshape(
+            meta["shape"]
+        )
+        off += nbytes
+        tensors.append(arr)
+    body = header["body"]
+    if "paths" not in header:
+        return _restore_markers_v1(body, tensors)
+    for path, arr in zip(header["paths"], tensors):
+        if not path:
+            return arr  # the body IS the tensor
+        node = body
+        for step in path[:-1]:
+            node = node[step]
+        node[path[-1]] = arr
+    return body
+
+
+class RpcError(Exception):
+    def __init__(self, code: int, msg: str,
+                 retry_after: float | None = None):
+        super().__init__(msg)
+        self.code = code
+        self.msg = msg
+        # overload backpressure hint (seconds): set on 429 sheds so the
+        # SDK can back off for exactly as long as the server asked
+        # instead of guessing; rides the error payload end to end
+        self.retry_after = retry_after
+
+
+def _sample_profile(seconds: float, interval: float = 0.01) -> str:
+    """Stdlib sampling profiler: aggregate thread stacks over a window
+    (the pprof-CPU-profile analogue; py-spy-style, no native deps).
+    Returns a text report of the hottest (function, file:line) frames
+    and the hottest full stacks."""
+    import collections
+    import sys
+
+    me = threading.get_ident()
+    frame_counts: collections.Counter = collections.Counter()
+    stack_counts: collections.Counter = collections.Counter()
+    samples = 0
+    deadline = time.monotonic() + seconds
+    while time.monotonic() < deadline:
+        for tid, frame in sys._current_frames().items():
+            if tid == me:
+                continue
+            stack = []
+            f = frame
+            while f is not None and len(stack) < 40:
+                co = f.f_code
+                entry = f"{co.co_name} ({co.co_filename.rsplit('/', 1)[-1]}:{f.f_lineno})"
+                stack.append(entry)
+                f = f.f_back
+            if stack:
+                frame_counts[stack[0]] += 1
+                stack_counts[" <- ".join(stack[:10])] += 1
+        samples += 1
+        time.sleep(interval)
+    lines = [f"# sampling profile: {seconds:.1f}s, {samples} samples, "
+             f"{interval * 1e3:.0f}ms interval", "",
+             "## hottest frames (leaf)"]
+    for entry, cnt in frame_counts.most_common(25):
+        lines.append(f"{cnt / max(samples, 1) * 100:6.1f}%  {entry}")
+    lines.append("")
+    lines.append("## hottest stacks")
+    for stack, cnt in stack_counts.most_common(10):
+        lines.append(f"{cnt / max(samples, 1) * 100:6.1f}%  {stack}")
+    return "\n".join(lines)
+
+
+class JsonRpcServer:
+    """Route table of (method, path-prefix) -> handler(body, path_parts).
+
+    Handlers return a JSON-serialisable object or raise RpcError; panics
+    are caught and surfaced as 500s (reference: handler chains with panic
+    recovery, pkg/server/rpc/handler/).
+    """
+
+    def __init__(
+        self,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        authenticator: Callable | None = None,
+        auth_exempt: tuple[str, ...] = (),
+    ):
+        self._routes: list[tuple[str, str, Callable]] = []
+        # authenticator(headers, method, path) raises RpcError(401/403)
+        # (reference: BasicAuth middleware, cluster_api.go:252)
+        self.authenticator = authenticator
+        self.auth_exempt = ("/metrics",) + auth_exempt
+        # middleware(method, path, body, headers) -> None to continue,
+        # or a result object served instead of the routed handler (the
+        # multi-master follower->leader proxy hangs here)
+        self.middleware: Callable | None = None
+        self.metrics = Registry()
+        register_process_gauges(self.metrics)
+        from vearch_tpu_torch.cluster.metrics import INTERNAL_ERRORS
+
+        # process-wide: the swallowed-exception counter raft/WAL feed
+        # has no server of its own; every role's /metrics exposes it
+        self.metrics.attach(INTERNAL_ERRORS)
+        self._m_requests = self.metrics.counter(
+            "vearch_request_total", "RPC requests",
+            ("method", "path", "code"),
+        )
+        self._m_latency = self.metrics.histogram(
+            "vearch_request_duration_seconds", "RPC latency",
+            ("method", "path"),
+        )
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+            # small JSON responses on kept-alive sockets must not sit in
+            # Nagle's buffer waiting for the client's delayed ACK
+            disable_nagle_algorithm = True
+
+            def log_message(self, *args):  # quiet
+                pass
+
+            def _serve(self, method: str):
+                plain_path = self.path.split("?")[0]
+                if method == "GET" and plain_path in ("/metrics",
+                                                      "/debug/stacks",
+                                                      "/debug/profile",
+                                                      "/debug/heap",
+                                                      "/debug/traces"):
+                    # /metrics stays open (scrapers); the debug
+                    # endpoints burn CPU / dump internals, so they go
+                    # through the authenticator like any other route
+                    if (plain_path.startswith("/debug")
+                            and outer.authenticator is not None):
+                        try:
+                            outer.authenticator(self.headers, method,
+                                                plain_path)
+                        except RpcError as e:
+                            self._reply(200, {"code": e.code,
+                                              "msg": e.msg})
+                            return
+                    if plain_path == "/metrics":
+                        data = outer.metrics.render().encode()
+                    elif plain_path == "/debug/profile":
+                        # sampling CPU profile (reference: pprof UI CPU
+                        # profiles, debugutil/): sample all thread
+                        # stacks for ?seconds=N, render hot frames
+                        from urllib.parse import parse_qs, urlparse
+
+                        qs = parse_qs(urlparse(self.path).query)
+                        try:
+                            secs = min(
+                                float(qs.get("seconds", ["2"])[0]), 30.0
+                            )
+                            if not (secs == secs and secs >= 0):  # NaN/neg
+                                raise ValueError(secs)
+                        except (TypeError, ValueError):
+                            self._reply(200, {
+                                "code": 400,
+                                "msg": "seconds must be a number in "
+                                       "[0, 30]",
+                            })
+                            return
+                        data = _sample_profile(secs).encode()
+                    elif plain_path == "/debug/heap":
+                        # heap profile (reference: pprof heap via
+                        # debugutil/): tracemalloc top allocation sites.
+                        # First call arms tracing (small overhead until
+                        # ?stop=1); subsequent calls report top sites.
+                        from urllib.parse import parse_qs, urlparse
+
+                        import tracemalloc
+
+                        qs = parse_qs(urlparse(self.path).query)
+                        if qs.get("stop", ["0"])[0] in ("1", "true"):
+                            tracemalloc.stop()
+                            data = b"tracemalloc stopped\n"
+                        elif not tracemalloc.is_tracing():
+                            tracemalloc.start(12)
+                            data = (b"tracemalloc started; call again "
+                                    b"for the report (?stop=1 to end)\n")
+                        else:
+                            snap = tracemalloc.take_snapshot()
+                            stats = snap.statistics("lineno")
+                            total = sum(s.size for s in stats)
+                            lines = [
+                                f"heap: {total / 1048576:.1f} MiB traced "
+                                f"across {len(stats)} sites; top 50:"
+                            ]
+                            for s in stats[:50]:
+                                lines.append(
+                                    f"{s.size / 1024:10.1f} KiB "
+                                    f"{s.count:8d} objs  "
+                                    f"{s.traceback[0].filename}:"
+                                    f"{s.traceback[0].lineno}"
+                                )
+                            data = "\n".join(lines).encode()
+                    elif plain_path == "/debug/traces":
+                        # finished-span store (reference: Jaeger query
+                        # UI; zero-egress container -> local ring +
+                        # this endpoint instead of a collector)
+                        from urllib.parse import parse_qs, urlparse
+
+                        qs = parse_qs(urlparse(self.path).query)
+                        tid = qs.get("trace_id", [None])[0]
+                        spans = (
+                            outer.tracer.spans(trace_id=tid)
+                            if getattr(outer, "tracer", None) is not None
+                            else []
+                        )
+                        data = json.dumps({"spans": spans}).encode()
+                    else:
+                        # pprof-style live thread dump (reference:
+                        # debugutil/pprofui goroutine profiles)
+                        import sys
+
+                        names = {
+                            t.ident: t.name for t in threading.enumerate()
+                        }
+                        lines = []
+                        for tid, frame in sys._current_frames().items():
+                            lines.append(
+                                f"--- thread {tid} ({names.get(tid, '?')}) ---"
+                            )
+                            lines.extend(
+                                s.rstrip()
+                                for s in traceback.format_stack(frame)
+                            )
+                        data = "\n".join(lines).encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type",
+                                     "text/plain; version=0.0.4")
+                    self.send_header("Content-Length", str(len(data)))
+                    self.end_headers()
+                    self.wfile.write(data)
+                    return
+                t0 = time.monotonic()
+                code = 0
+                prefix = self.path.split("?")[0]
+                _request_ctx.auth = self.headers.get("Authorization")
+                try:
+                    # drain the request body BEFORE anything that can
+                    # raise (auth): with keep-alive clients an unread
+                    # body stays in the stream and desyncs the next
+                    # request on the pooled connection
+                    length = int(self.headers.get("Content-Length") or 0)
+                    raw = self.rfile.read(length) if length else b""
+                    if outer.authenticator is not None and not any(
+                        prefix == p or prefix.startswith(p + "/")
+                        for p in outer.auth_exempt
+                    ):
+                        outer.authenticator(self.headers, method, prefix)
+                    body = _decode(
+                        self.headers.get("Content-Type") or JSON_CT, raw
+                    )
+                    if "?" in self.path:
+                        # URL query params ride into dict bodies under
+                        # "_query" (reference: ?detail=true etc.);
+                        # handlers opt in by reading it
+                        from urllib.parse import parse_qs, urlparse
+
+                        q = {k: v[-1] for k, v in parse_qs(
+                            urlparse(self.path).query).items()}
+                        if q and (body is None or isinstance(body, dict)):
+                            body = {**(body or {}), "_query": q}
+                    if outer.middleware is not None:
+                        short = outer.middleware(
+                            method, self.path.split("?")[0], body,
+                            self.headers,
+                        )
+                        if short is not None:
+                            self._reply(200, {"code": 0, "data": short})
+                            return
+                    match = outer._match(method, self.path)
+                    handler, parts = match
+                    if handler is not None:
+                        prefix = outer._matched_prefix(method, self.path)
+                    if handler is None:
+                        code = 404
+                        self._reply(404, {"code": 404, "msg": f"no route {method} {self.path}"})
+                        return
+                    result = handler(body, parts)
+                    self._reply(200, {"code": 0, "data": result})
+                except RpcError as e:
+                    code = e.code
+                    payload = {"code": e.code, "msg": e.msg}
+                    if e.retry_after is not None:
+                        payload["retry_after"] = float(e.retry_after)
+                    self._reply(200, payload)
+                except Exception as e:  # panic recovery
+                    code = 500
+                    _log.error("panic in %s %s: %s: %s\n%s", method,
+                               prefix, type(e).__name__, e,
+                               traceback.format_exc(limit=8))
+                    self._reply(
+                        500,
+                        {"code": 500, "msg": f"{type(e).__name__}: {e}",
+                         "trace": traceback.format_exc(limit=8)},
+                    )
+                finally:
+                    _request_ctx.auth = None
+                    dt = time.monotonic() - t0
+                    # access log at debug (reference: request logs are
+                    # debug-gated; IsDebugEnabled avoids the format cost)
+                    if log.is_debug_enabled():
+                        _log.debug("%s %s -> %s %.1fms", method, prefix,
+                                   code, dt * 1e3)
+                    outer._m_requests.inc(method, prefix, str(code))
+                    outer._m_latency.observe(dt, method, prefix)
+
+            def _reply(self, status: int, obj: dict):
+                ct, data = _encode(obj)
+                self.send_response(status)
+                self.send_header("Content-Type", ct)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def do_GET(self):
+                self._serve("GET")
+
+            def do_POST(self):
+                self._serve("POST")
+
+            def do_PUT(self):
+                self._serve("PUT")
+
+            def do_DELETE(self):
+                self._serve("DELETE")
+
+        class Server(ThreadingHTTPServer):
+            # stdlib default backlog is 5: a burst of concurrent
+            # clients (each rpc.call opens a fresh TCP connection)
+            # overflows it and the kernel RSTs the excess — observed as
+            # flaky "connection reset by peer" at ~64 parallel callers
+            request_queue_size = 512
+
+        self._httpd = Server((host, port), Handler)
+        self._httpd.daemon_threads = True
+        self.addr = f"{host}:{self._httpd.server_address[1]}"
+        self._thread: threading.Thread | None = None
+
+    def route(self, method: str, prefix: str, handler: Callable) -> None:
+        """Register handler(body, parts) where parts = path segments after
+        the prefix."""
+        self._routes.append((method, prefix.rstrip("/"), handler))
+
+    def _matched_prefix(self, method: str, path: str) -> str:
+        """Longest matching route prefix (metric label — bounded
+        cardinality, unlike raw paths)."""
+        path = path.split("?")[0].rstrip("/")
+        best = ""
+        for m, prefix, _ in self._routes:
+            if m != method:
+                continue
+            if (path == prefix or path.startswith(prefix + "/")) and len(
+                prefix
+            ) > len(best):
+                best = prefix
+        return best or path
+
+    def _match(self, method: str, path: str):
+        path = path.split("?")[0].rstrip("/")
+        best = None
+        best_len = -1
+        for m, prefix, h in self._routes:
+            if m != method:
+                continue
+            if path == prefix or path.startswith(prefix + "/"):
+                if len(prefix) > best_len:
+                    rest = path[len(prefix):].strip("/")
+                    parts = rest.split("/") if rest else []
+                    best = (h, parts)
+                    best_len = len(prefix)
+        return best if best else (None, None)
+
+    def start(self) -> None:
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, daemon=True,
+            name=f"rpc-httpd-{self.addr}",
+        )
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+
+
+def call(
+    addr: str,
+    method: str,
+    path: str,
+    body: Any = None,
+    timeout: float = 120.0,
+    auth: tuple[str, str] | None = None,
+    extra_headers: dict[str, str] | None = None,
+) -> Any:
+    """Client side: raises RpcError on non-zero code. Bodies containing
+    numpy arrays ride the binary tensor codec automatically.
+
+    `addr` may be a comma-separated list (a multi-master endpoint): each
+    address is tried in turn on unreachable/leaderless errors — any
+    master proxies to the current leader, so the first healthy one
+    answers."""
+    import base64
+
+    if "," in addr:
+        last: RpcError | None = None
+        for a in addr.split(","):
+            try:
+                return call(a.strip(), method, path, body,
+                            timeout=timeout, auth=auth,
+                            extra_headers=extra_headers)
+            except RpcError as e:
+                if e.code not in (-1, 503):
+                    raise
+                last = e
+        raise last
+    if body is not None:
+        ct, data = _encode(body)
+    else:
+        ct, data = JSON_CT, None
+    headers = {"Content-Type": ct}
+    if extra_headers:
+        headers.update(extra_headers)
+    if auth is not None:
+        token = base64.b64encode(f"{auth[0]}:{auth[1]}".encode()).decode()
+        headers["Authorization"] = f"Basic {token}"
+    status, resp_ct, raw = _pooled_request(addr, method, path, data,
+                                           headers, timeout)
+    if status >= 400:
+        try:
+            payload = json.loads(raw)
+        except Exception:
+            raise RpcError(status, f"HTTP {status}")
+    else:
+        payload = _decode(resp_ct, raw)
+    if payload.get("code", 0) != 0:
+        ra = payload.get("retry_after")
+        raise RpcError(payload["code"], payload.get("msg", "rpc error"),
+                       retry_after=float(ra) if ra is not None else None)
+    return payload.get("data")
+
+
+# -- keep-alive connection pool ---------------------------------------------
+# One pooled HTTPConnection per (thread, addr): profiling showed a fresh
+# TCP handshake per hop dominating small-request latency (client->router
+# ->PS = 3 connects per b=1 search). Connections are not thread-safe, so
+# the pool is thread-local; the server side already speaks HTTP/1.1 with
+# Content-Length responses, so keep-alive just works. A stale pooled
+# socket (peer restarted, idle timeout) gets ONE transparent retry on a
+# fresh connection.
+
+_conn_pool = threading.local()
+
+
+def _pooled_request(addr, method, path, data, headers, timeout):
+    import http.client
+
+    pool = getattr(_conn_pool, "conns", None)
+    if pool is None:
+        pool = _conn_pool.conns = {}
+    for attempt in (0, 1):
+        conn = pool.get(addr)
+        fresh = conn is None
+        if fresh:
+            host, _, port = addr.rpartition(":")
+            try:
+                conn = http.client.HTTPConnection(
+                    host, int(port), timeout=timeout)
+            except ValueError:
+                raise RpcError(-1, f"bad address {addr!r}") from None
+            pool[addr] = conn
+        elif conn.sock is not None:
+            conn.sock.settimeout(timeout)
+        if conn.sock is None:
+            conn.timeout = timeout  # not the timeout it was created with
+            try:
+                # lint: allow[serving-blocking] the transport boundary itself, bounded by the caller's timeout set just above
+                conn.connect()
+            except OSError as e:
+                conn.close()
+                pool.pop(addr, None)
+                raise RpcError(-1, f"unreachable {addr}: {e}") from e
+            # keep-alive + small request/response pairs hit Nagle vs
+            # delayed-ACK (~40ms per hop on loopback); fresh-connection
+            # clients never noticed because the handshake reset timing
+            import socket as _socket
+
+            conn.sock.setsockopt(_socket.IPPROTO_TCP,
+                                 _socket.TCP_NODELAY, 1)
+
+        def _drop():
+            conn.close()
+            pool.pop(addr, None)
+
+        # SEND phase: a send-side failure proves the request never
+        # executed, so retrying cannot duplicate a non-idempotent op
+        try:
+            conn.request(method, path, body=data, headers=headers)
+        except (BrokenPipeError, ConnectionResetError,
+                http.client.CannotSendRequest) as e:
+            _drop()
+            if fresh or attempt:
+                raise RpcError(-1, f"unreachable {addr}: {e}") from e
+            continue  # stale keep-alive socket: one fresh-connection retry
+        except (http.client.HTTPException, OSError) as e:
+            _drop()
+            raise RpcError(-1, f"unreachable {addr}: {e}") from e
+        # RECEIVE phase: only RemoteDisconnected (server closed without
+        # sending ANY response — the canonical idle-keep-alive reap) is
+        # retried; a timeout or mid-response error may mean the server
+        # is still executing the request, and re-sending would run a
+        # non-idempotent op twice
+        try:
+            resp = conn.getresponse()
+            raw = resp.read()
+        except http.client.RemoteDisconnected as e:
+            _drop()
+            if fresh or attempt:
+                raise RpcError(-1, f"unreachable {addr}: {e}") from e
+            continue
+        except (http.client.HTTPException, OSError) as e:
+            _drop()
+            raise RpcError(-1, f"unreachable {addr}: {e}") from e
+        ct = resp.headers.get("Content-Type") or JSON_CT
+        if resp.headers.get("Connection", "").lower() == "close":
+            _drop()
+        return resp.status, ct, raw

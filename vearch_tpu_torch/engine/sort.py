@@ -133,3 +133,24 @@ def row_sort_key(specs: list[dict], get_values, tie_key=None):
         return -1 if ta < tb else (1 if ta > tb else 0)
 
     return cmp_to_key(cmp)
+
+
+def validate_sort(specs: list[dict], schema_fields: dict,
+                  allow_score: bool = True) -> None:
+    """Reject sorts on unknown or vector fields (reference:
+    doc_query.go:1331 'sort field [%s] not space field'). `schema_fields`
+    maps field name -> data_type string."""
+    for spec in specs:
+        f = spec["field"]
+        if f == ID_FIELD:
+            continue
+        if f == SCORE_FIELD:
+            if allow_score:
+                continue
+            raise ValueError("_score sort is not valid for query "
+                             "(no vector score)")
+        dt = schema_fields.get(f)
+        if dt is None:
+            raise ValueError(f"sort field [{f}] not space field")
+        if str(dt).lower() == "vector":
+            raise ValueError(f"sort field [{f}] is a vector field")

@@ -1,0 +1,360 @@
+"""Python SDK.
+
+Mirrors pyvearch's surface (reference: sdk/python/vearch/core/vearch.py:33
+`Vearch`, core/space.py:30 `Space` — create_database/create_space/upsert/
+search/query/delete against the router+master REST API).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+
+from vearch_tpu_torch.cluster import rpc
+
+
+class VearchClient:
+    def __init__(self, router_addr: str, master_addr: str | None = None):
+        self.addr = router_addr.replace("http://", "")
+        # elastic/admin verbs (split/migrate/rebalance/drain) hit the
+        # master directly — they reshape the cluster, not one request
+        self.master_addr = (master_addr.replace("http://", "")
+                            if master_addr else None)
+
+    def _master(self) -> str:
+        if self.master_addr is None:
+            raise ValueError(
+                "elastic operations need VearchClient(master_addr=...)")
+        return self.master_addr
+
+    # -- admin (proxied to master) -------------------------------------------
+
+    def create_database(self, db_name: str) -> dict:
+        return rpc.call(self.addr, "POST", f"/dbs/{db_name}")
+
+    def drop_database(self, db_name: str) -> dict:
+        return rpc.call(self.addr, "DELETE", f"/dbs/{db_name}")
+
+    def list_databases(self) -> list[dict]:
+        return rpc.call(self.addr, "GET", "/dbs")["dbs"]
+
+    def create_space(self, db_name: str, space_config: dict) -> dict:
+        """space_config: {name, fields: [...], partition_num, replica_num}
+        with fields in TableSchema.to_dict() form."""
+        return rpc.call(self.addr, "POST", f"/dbs/{db_name}/spaces", space_config)
+
+    def drop_space(self, db_name: str, space_name: str) -> dict:
+        return rpc.call(self.addr, "DELETE", f"/dbs/{db_name}/spaces/{space_name}")
+
+    def get_space(self, db_name: str, space_name: str,
+                  detail: bool = False) -> dict:
+        if detail:
+            # per-partition doc/size/status (reference: ?detail=true)
+            return rpc.call(
+                self.addr, "GET",
+                f"/dbs/{db_name}/spaces/{space_name}?detail=true")
+        return self._get_space_plain(db_name, space_name)
+
+    def _get_space_plain(self, db_name: str, space_name: str) -> dict:
+        return rpc.call(self.addr, "GET", f"/dbs/{db_name}/spaces/{space_name}")
+
+    def list_spaces(self, db_name: str) -> list[dict]:
+        return rpc.call(self.addr, "GET", f"/dbs/{db_name}/spaces")["spaces"]
+
+    def is_live(self) -> bool:
+        try:
+            rpc.call(self.addr, "GET", "/cluster/health")
+            return True
+        except rpc.RpcError:
+            return False
+
+    # -- documents -----------------------------------------------------------
+
+    # overload backoff for the document verbs: a 429 shed from admission
+    # control carries the server's Retry-After hint; honor it with
+    # capped, jittered sleeps and a bounded retry count so a saturated
+    # cluster sees polite clients, not a retry storm
+    max_retries_429 = 3
+    backoff_cap_s = 3.0
+
+    def _doc_call(self, method: str, path: str, body: dict | None = None):
+        """rpc.call with 429 backoff. Only 429 retries here: terminal
+        kills (499 request_killed) and every other error propagate
+        immediately — the kill exists to shed that exact work, and
+        failover retries already live in the router."""
+        import random
+        import time
+
+        attempt = 0
+        while True:
+            try:
+                return rpc.call(self.addr, method, path, body)
+            except rpc.RpcError as e:
+                if e.code != 429 or attempt >= self.max_retries_429:
+                    raise
+                attempt += 1
+                base = (float(e.retry_after) if e.retry_after
+                        else 0.1 * attempt)
+                time.sleep(min(self.backoff_cap_s,
+                               base * random.uniform(0.5, 1.5)))
+
+    def upsert(self, db_name: str, space_name: str, documents: list[dict],
+               profile: bool = False) -> dict:
+        """Upsert documents. With ``profile=True`` the response carries a
+        router-merged write-side phase breakdown (propose-wait, WAL
+        append+fsync, commit-wait, engine apply) per partition — the
+        mutation-plane mirror of ``search(profile=True)``."""
+        documents = [
+            {k: (v.tolist() if isinstance(v, np.ndarray) else v)
+             for k, v in d.items()}
+            for d in documents
+        ]
+        body = {
+            "db_name": db_name, "space_name": space_name,
+            "documents": documents,
+        }
+        if profile:
+            body["profile"] = True
+        return self._doc_call("POST", "/document/upsert", body)
+
+    def search(
+        self,
+        db_name: str,
+        space_name: str,
+        vectors: list[dict[str, Any]],
+        limit: int = 10,
+        filters: dict | None = None,
+        fields: list[str] | None = None,
+        index_params: dict | None = None,
+        ranker: dict | None = None,
+        # None defers to the router's configured read routing (leader,
+        # or least-loaded replica when replica_read is on); an explicit
+        # mode always wins
+        load_balance: str | None = None,
+        columnar: bool = False,
+        sort: Any = None,
+        page_size: int | None = None,
+        page_num: int | None = None,
+        profile: bool = False,
+        deadline_ms: float | None = None,
+        cache: bool = True,
+    ) -> list[list[dict]] | dict:
+        """Search `space_name`; returns per-query hit lists.
+
+        With ``profile=True`` the full response dict comes back instead:
+        ``documents`` plus a router-merged ``profile`` breakdown —
+        per-partition phase timings, measured dispatch tags vs the perf
+        model's documented prediction, and router merge cost (schema in
+        docs/OBSERVABILITY.md).
+
+        ``cache=False`` bypasses the router and partition result
+        caches for this request — correctness-sensitive callers and
+        cold benchmarks always hit the engines; the profile reports
+        ``cache: bypass``."""
+        # features ride as ndarrays: the RPC layer's binary tensor codec
+        # ships a [b*d] f32 buffer instead of tens of thousands of JSON
+        # floats (a large-batch query upload was ~30% of e2e latency)
+        vectors = [
+            {**v, "feature": np.asarray(
+                v["feature"], dtype=np.float32).ravel()}
+            for v in vectors
+        ]
+        body = {
+            "db_name": db_name, "space_name": space_name,
+            "vectors": vectors, "limit": limit,
+        }
+        if load_balance:
+            body["load_balance"] = load_balance
+        if filters:
+            body["filters"] = filters
+        if fields is not None:
+            body["fields"] = fields
+        if index_params:
+            body["index_params"] = index_params
+        if ranker:
+            body["ranker"] = ranker
+        if sort is not None:
+            body["sort"] = sort
+        if page_size is not None:
+            body["page_size"] = page_size
+        if page_num is not None:
+            body["page_num"] = page_num
+        if deadline_ms is not None:
+            # per-request execution budget: each partition server arms a
+            # kill between device dispatches; an expired request fails
+            # with a terminal request_killed error (never retried)
+            body["deadline_ms"] = deadline_ms
+        if not cache:
+            body["cache"] = False
+        if profile:
+            body["profile"] = True
+            return self._doc_call("POST", "/document/search", body)
+        if columnar and fields == []:
+            # fields-free throughput mode: scores ride as ONE binary f32
+            # buffer instead of b*k JSON dicts; reshaped here so the
+            # return type is identical
+            body["columnar"] = True
+            out = self._doc_call("POST", "/document/search", body)
+            if out.get("columnar"):
+                flat = np.asarray(out["scores"]).tolist()
+                res, pos = [], 0
+                for ks in out["keys"]:
+                    res.append([
+                        {"_id": k, "_score": flat[pos + i]}
+                        for i, k in enumerate(ks)
+                    ])
+                    pos += len(ks)
+                return res
+            return out["documents"]
+        return self._doc_call("POST", "/document/search", body)["documents"]
+
+    def query(
+        self,
+        db_name: str,
+        space_name: str,
+        document_ids: list[str] | None = None,
+        filters: dict | None = None,
+        limit: int = 50,
+        offset: int = 0,
+        fields: list[str] | None = None,
+        vector_value: bool = False,
+        sort: Any = None,
+    ) -> list[dict]:
+        body: dict[str, Any] = {"db_name": db_name, "space_name": space_name,
+                                "limit": limit, "offset": offset,
+                                "vector_value": vector_value}
+        if document_ids:
+            body["document_ids"] = document_ids
+        if filters:
+            body["filters"] = filters
+        if fields is not None:
+            body["fields"] = fields
+        if sort is not None:
+            body["sort"] = sort
+        return self._doc_call("POST", "/document/query", body)["documents"]
+
+    def delete(
+        self,
+        db_name: str,
+        space_name: str,
+        document_ids: list[str] | None = None,
+        filters: dict | None = None,
+        limit: int | None = None,
+    ) -> int:
+        body: dict[str, Any] = {"db_name": db_name, "space_name": space_name}
+        if document_ids:
+            body["document_ids"] = document_ids
+        if filters:
+            body["filters"] = filters
+        if limit is not None:
+            body["limit"] = limit
+        return self._doc_call("POST", "/document/delete", body)["total"]
+
+    def flush(self, db_name: str, space_name: str) -> dict:
+        return rpc.call(self.addr, "POST", "/index/flush",
+                        {"db_name": db_name, "space_name": space_name})
+
+    def forcemerge(self, db_name: str, space_name: str) -> dict:
+        return rpc.call(self.addr, "POST", "/index/forcemerge",
+                        {"db_name": db_name, "space_name": space_name})
+
+    def rebuild(self, db_name: str, space_name: str) -> dict:
+        return rpc.call(self.addr, "POST", "/index/rebuild",
+                        {"db_name": db_name, "space_name": space_name})
+
+    def update_space(self, db_name: str, space_name: str,
+                     config: dict) -> dict:
+        """Online space update (reference: UpdateSpace): expand
+        partition_num, or add new scalar fields via {"fields": [...]}."""
+        return rpc.call(self.addr, "PUT",
+                        f"/dbs/{db_name}/spaces/{space_name}", config)
+
+    def add_field_index(
+        self, db_name: str, space_name: str, field: str,
+        index_type: str = "INVERTED", background: bool = True,
+    ) -> dict:
+        """Build a scalar index on a live field (reference:
+        AddFieldIndexWithParams, c_api/gamma_api.h:166)."""
+        return rpc.call(self.addr, "POST", "/field_index", {
+            "db_name": db_name, "space_name": space_name, "field": field,
+            "operator_type": "ADD", "index_type": index_type,
+            "background": background,
+        })
+
+    def remove_field_index(
+        self, db_name: str, space_name: str, field: str
+    ) -> dict:
+        """Drop a field's scalar index (reference: RemoveFieldIndex,
+        c_api/gamma_api.h:181)."""
+        return rpc.call(self.addr, "POST", "/field_index", {
+            "db_name": db_name, "space_name": space_name, "field": field,
+            "operator_type": "DROP",
+        })
+
+    # -- elasticity (master-side; see docs/ELASTICITY.md) --------------------
+
+    def split_partition(self, db_name: str, space_name: str,
+                        partition_id: int,
+                        timeout_s: float = 600.0) -> dict:
+        """Start an online split of `partition_id` into two hash-range
+        children. Returns {"job_id", "status"}; poll with
+        ``elastic_job`` / ``wait_elastic_job``."""
+        return rpc.call(self._master(), "POST", "/partitions/split", {
+            "db_name": db_name, "space_name": space_name,
+            "partition_id": partition_id, "timeout_s": timeout_s,
+        })
+
+    def migrate_partition(self, partition_id: int, to_node: int,
+                          from_node: int | None = None,
+                          timeout_s: float = 600.0) -> dict:
+        """Move one replica of `partition_id` onto PS `to_node` via
+        snapshot-streamed catch-up, then retire the source replica."""
+        body: dict[str, Any] = {"partition_id": partition_id,
+                                "to_node": to_node, "timeout_s": timeout_s}
+        if from_node is not None:
+            body["from_node"] = from_node
+        return rpc.call(self._master(), "POST", "/partitions/migrate",
+                        body)
+
+    def rebalance(self, apply: bool = False, max_moves: int = 4) -> dict:
+        """Compute (and with ``apply=True`` execute) a load-leveling
+        plan of replica moves; the plan rides back either way."""
+        return rpc.call(self._master(), "POST", "/cluster/rebalance",
+                        {"apply": apply, "max_moves": max_moves})
+
+    def drain(self, node_id: int, apply: bool = False) -> dict:
+        """Plan (and with ``apply=True`` execute) moving every replica
+        off PS `node_id`, so it can be decommissioned."""
+        return rpc.call(self._master(), "POST", "/cluster/drain",
+                        {"node_id": node_id, "apply": apply})
+
+    def cluster_plan(self) -> dict:
+        return rpc.call(self._master(), "GET", "/cluster/plan")
+
+    def elastic_job(self, job_id: str) -> dict:
+        return rpc.call(self._master(), "GET", f"/cluster/jobs/{job_id}")
+
+    def elastic_jobs(self) -> list[dict]:
+        return rpc.call(self._master(), "GET", "/cluster/jobs")["jobs"]
+
+    def wait_elastic_job(self, job_id: str,
+                         timeout_s: float = 600.0) -> dict:
+        """Block until the job leaves "running" (or `timeout_s` runs
+        out). Raises TimeoutError on the deadline, RuntimeError when
+        the job finishes in error."""
+        import time as _time
+
+        deadline = _time.monotonic() + timeout_s
+        while True:
+            job = self.elastic_job(job_id)
+            if job["status"] != "running":
+                if job["status"] == "error":
+                    raise RuntimeError(
+                        f"elastic job {job_id} failed: {job.get('error')}")
+                return job
+            if _time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"elastic job {job_id} still running after "
+                    f"{timeout_s}s (phase {job.get('phase')})")
+            _time.sleep(0.2)

@@ -1,0 +1,271 @@
+"""Opt-in runtime lock-discipline checker (``VEARCH_LOCKCHECK=1``).
+
+The static side of lock discipline (vearch-lint VL201) proves lexical
+placement; this layer proves the *dynamic* claims the linter must take
+on faith — that a ``# lint: holds[_lock]`` method really runs under
+the lock, and that no pair of locks is ever taken in both orders.
+
+Three pieces:
+
+- :func:`make_lock` — the cluster layer creates its locks through
+  this. Plain ``threading.Lock``/``RLock`` normally (zero overhead);
+  a named :class:`DebugLock` when checking is enabled.
+- :class:`DebugLock` — records, per thread, the stack of held locks,
+  and the global edge set "A held while acquiring B". A new edge whose
+  reverse already exists is a lock-order inversion: two threads can
+  interleave into deadlock, which a test run may never hit but the
+  graph proves possible. Recorded once per pair, with both stacks.
+- :func:`guarded` — class decorator reading the class's
+  ``_guarded_by`` map (the same map VL201 enforces statically). When
+  checking is enabled, a write to a guarded attribute outside its
+  DebugLock — from *any* thread after ``__init__`` finishes — records
+  an unguarded-access violation.
+
+Violations accumulate in a process-wide list; tests call
+:func:`check` (raises with every violation) or :func:`violations`.
+Enablement is read per lock/instance creation: set the env var (or
+call :func:`enable`) *before* constructing the objects under test.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+import threading
+import traceback
+
+__all__ = [
+    "enabled", "enable", "disable", "reset",
+    "make_lock", "DebugLock", "guarded",
+    "violations", "check", "acquisition_edges",
+]
+
+_forced: bool | None = None
+_state_lock = threading.Lock()
+_violations: list[dict] = []
+# (first, then) -> short stack summary of the acquisition that created
+# the edge; the reverse-edge check is the inversion detector
+_edges: dict[tuple[str, str], str] = {}
+_tls = threading.local()
+
+
+def enabled() -> bool:
+    if _forced is not None:
+        return _forced
+    return os.environ.get("VEARCH_LOCKCHECK", "") not in ("", "0")
+
+
+def enable() -> None:
+    global _forced
+    _forced = True
+
+
+def disable() -> None:
+    global _forced
+    _forced = False
+
+
+def reset() -> None:
+    """Clear recorded state (between tests)."""
+    global _forced
+    with _state_lock:
+        _violations.clear()
+        _edges.clear()
+    _forced = None
+
+
+def violations() -> list[dict]:
+    with _state_lock:
+        return list(_violations)
+
+
+def acquisition_edges() -> dict[tuple[str, str], str]:
+    with _state_lock:
+        return dict(_edges)
+
+
+def check() -> None:
+    """Raise AssertionError listing every recorded violation."""
+    v = violations()
+    if v:
+        lines = [f"- [{x['kind']}] {x['detail']}" for x in v]
+        raise AssertionError(
+            f"lockcheck recorded {len(v)} violation(s):\n" +
+            "\n".join(lines))
+
+
+def _record(kind: str, detail: str, stack: str = "") -> None:
+    with _state_lock:
+        _violations.append({"kind": kind, "detail": detail, "stack": stack})
+
+
+def _held_stack() -> list["DebugLock"]:
+    stack = getattr(_tls, "held", None)
+    if stack is None:
+        stack = _tls.held = []
+    return stack
+
+
+def _site() -> str:
+    # the caller outside this module: the acquisition site
+    for frame in reversed(traceback.extract_stack(limit=8)[:-2]):
+        if "lockcheck" not in (frame.filename or ""):
+            return f"{frame.filename}:{frame.lineno} in {frame.name}"
+    return "<unknown>"
+
+
+class DebugLock:
+    """Named reentrant lock recording order edges and ownership.
+
+    Reentrant on purpose even for call sites that asked for a plain
+    Lock: the checker must observe nested acquisition rather than
+    deadlock on it, and a same-lock re-acquire that would deadlock a
+    plain Lock is recorded as a violation instead.
+    """
+
+    def __init__(self, name: str, reentrant: bool = True):
+        self.name = name
+        self.reentrant = reentrant
+        self._inner = threading.RLock()
+
+    # -- ownership ------------------------------------------------------------
+
+    def held_by_current(self) -> bool:
+        return self in _held_stack()
+
+    def _note_edges(self) -> None:
+        held = _held_stack()
+        site = _site()
+        for h in held:
+            if h.name == self.name:
+                continue
+            edge = (h.name, self.name)
+            rev = (self.name, h.name)
+            with _state_lock:
+                known = edge in _edges
+                rev_site = _edges.get(rev)
+                if not known:
+                    _edges[edge] = site
+            if rev_site is not None:
+                _record(
+                    "lock-order-inversion",
+                    f"{h.name} -> {self.name} at {site}; reverse order "
+                    f"previously at {rev_site}",
+                    site,
+                )
+
+    # -- lock protocol --------------------------------------------------------
+
+    def acquire(self, blocking: bool = True, timeout: float = -1):
+        held = _held_stack()
+        if not self.reentrant and self in held:
+            _record(
+                "self-deadlock",
+                f"re-acquiring non-reentrant lock {self.name} at "
+                f"{_site()} (a plain Lock would deadlock here)",
+            )
+        if self not in held:
+            self._note_edges()
+        got = self._inner.acquire(blocking, timeout)
+        if got:
+            held.append(self)
+        return got
+
+    def release(self) -> None:
+        held = _held_stack()
+        if self in held:
+            # remove the most recent entry (reentrant stacking)
+            for i in range(len(held) - 1, -1, -1):
+                if held[i] is self:
+                    del held[i]
+                    break
+        else:
+            _record("foreign-release",
+                    f"{self.name} released by a thread that never "
+                    f"acquired it, at {_site()}")
+        self._inner.release()
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+    # Condition(lock) integration: delegate the save/restore pair so
+    # cv.wait() keeps the held-stack honest while the lock is out
+    def _is_owned(self) -> bool:
+        return self._inner._is_owned()
+
+    def _release_save(self):
+        held = _held_stack()
+        count = held.count(self)
+        for _ in range(count):
+            for i in range(len(held) - 1, -1, -1):
+                if held[i] is self:
+                    del held[i]
+                    break
+        return (self._inner._release_save(), count)
+
+    def _acquire_restore(self, state) -> None:
+        inner_state, count = state
+        self._inner._acquire_restore(inner_state)
+        held = _held_stack()
+        held.extend([self] * count)
+
+    def __repr__(self) -> str:
+        return f"<DebugLock {self.name}>"
+
+
+def make_lock(name: str, reentrant: bool = False):
+    """A lock for cluster-layer shared state. Plain Lock/RLock unless
+    lockcheck is enabled, then a named DebugLock."""
+    if enabled():
+        return DebugLock(name, reentrant=reentrant)
+    return threading.RLock() if reentrant else threading.Lock()
+
+
+def _lock_names(value) -> tuple[str, ...]:
+    return (value,) if isinstance(value, str) else tuple(value)
+
+
+def guarded(cls):
+    """Class decorator: runtime-verify the class's ``_guarded_by`` map.
+
+    No-ops (beyond one dict lookup per setattr) when lockcheck is off
+    or the instance's locks are plain locks. Construction is exempt:
+    writes during ``__init__`` happen before the object is published.
+    """
+    guards = getattr(cls, "_guarded_by", None)
+    if not guards:
+        return cls
+
+    orig_init = cls.__init__
+    orig_setattr = cls.__setattr__
+
+    @functools.wraps(orig_init)
+    def __init__(self, *args, **kw):
+        object.__setattr__(self, "_lockcheck_in_init", True)
+        try:
+            orig_init(self, *args, **kw)
+        finally:
+            object.__setattr__(self, "_lockcheck_in_init", False)
+
+    def __setattr__(self, name, value):
+        if name in guards and enabled() and \
+                not self.__dict__.get("_lockcheck_in_init", True):
+            lock_attrs = _lock_names(guards[name])
+            locks = [getattr(self, a, None) for a in lock_attrs]
+            debug = [lk for lk in locks if isinstance(lk, DebugLock)]
+            if debug and not any(lk.held_by_current() for lk in debug):
+                _record(
+                    "unguarded-write",
+                    f"{cls.__name__}.{name} written without "
+                    f"{' or '.join(lock_attrs)} held, at {_site()} "
+                    f"(thread {threading.current_thread().name})",
+                )
+        orig_setattr(self, name, value)
+
+    cls.__init__ = __init__
+    cls.__setattr__ = __setattr__
+    return cls
