@@ -42,6 +42,19 @@ Phases:
    the index's real mirror, buckets and probes) are then compared as in
    phase 2; the probe kernel's time is split into its pair grouping, the
    kernel alone, its zero-writing path and an output memset.
+3b. The mesh layer (`phase_mesh`), at the main path's rows and settings,
+   B=1024, with 4 virtual shards on the one card (REDUCED["mesh"]):
+   one IVFPQ engine served single-device, through a 1x1 mesh and
+   through a 4x1 mesh (per request: `mesh_serving: "on"`, `mesh_shape`),
+   in the full scan (rerank 512, topk_mode "blockmax": the block-max
+   kernel must launch once a search per shard) and the probe regime
+   (nprobe 64, rerank 512: the gated mirror scan, plain PyTorch);
+   recall@10 >= 0.95 on every path, the 1x1 full scan's ids equal to
+   the single device's, the other paths' differing rows counted; FLAT
+   against FLAT_SHARDED over the 4x1 mesh (scores equal within
+   SCORE_TOL); `mesh_train` over the 4x1 mesh against the unsharded
+   build (k-means objective within 2%, recall within 0.01); IVFRABITQ
+   single-device and over both meshes.
 4. The rest of the engine (`phase_engine`), on a fresh engine of the
    main path's rows, index and width with two scalar fields from a
    seeded generator (`cat` int in [0, 100) with an INVERTED index, `tag`
@@ -161,8 +174,26 @@ Phases:
    must keep recall@10 >= 0.95 (ids before and after compared). Each
    path's launches are set to 0 just before it and read just after; the
    full scans must launch the block-max kernel and the probe path the
-   probe-dots kernel. The cluster stops and the card is emptied before
-   the footprint table.
+   probe-dots kernel. phase_elastic then runs on this cluster, and the
+   cluster stops and the card is emptied.
+10. Elastic jobs (`phase_elastic`), on phase_cluster's cluster after its
+   failover: a fresh partition server joins and the master re-places the
+   replicas the failover dropped on it (caught up by raft log replay;
+   the counts of the cluster's space equal on 3 replicas again), a space
+   of ELASTIC_ROWS docs (1 partition x 3 replicas, REDUCED["elastic"]) is
+   built and searched, its partition splits while a bounded writer adds
+   ELASTIC_WRITES new docs (doc counts on every replica equal the seeds
+   plus the acked writes, every child engine on the card), the children
+   are built and searched (the block-max kernel on the full scan, probe
+   dots on the probe regime, recall@10 >= 0.95), a child's replica
+   migrates to a second fresh server and the first is drained, which
+   moves the re-placed replicas of the cluster's space too (counts held
+   on every replica of both spaces; the moved replicas, which arrive
+   unindexed as the reference's do, are built; recall held on both
+   spaces and both kernels launching again), and the cluster doctor runs
+   (its exit code and checks printed; any violation outside
+   DOCTOR_EXPECTED fails the run); the gRPC front end is not run on the
+   card.
 
 Before the last three lines comes each kernel's time before its redesign,
 quoted from PERF.md and labelled so. The last three lines are the card's
@@ -223,6 +254,26 @@ REDUCED = {
                "partition the 'auto' gate (blocks >= 4 x max(32, rerank / "
                "4)) would select exactly, where the main path's 1M rows "
                "select by block maxima",
+    "elastic": "10,000 seed docs (bench.py's recipe at its density of "
+               "200 rows a cluster, seed 7, with 1024 queries perturbed "
+               "from them) in a space of 1 partition x 3 replicas on "
+               "phase_cluster's cluster after its failover, 64 centroids, "
+               "nprobe 32, and 1,000 new docs written during the split, "
+               "which is the job cut: a split copies every doc through "
+               "the children's raft logs as JSON at 764 docs/s on the "
+               "card (PERF.md section 6; this run prints its own rate and "
+               "the time it projects for one of the cluster's 100,000-doc "
+               "partitions, 131 s there), so splitting, building and "
+               "moving that partition's children would add ~150-200 s to "
+               "a run that stood at 874 s of its 1,200 s limit with this "
+               "cut. The drain moves the cluster's own re-placed "
+               "100,000-doc replicas at full size. The rerank-512 full "
+               "scans name topk_mode 'blockmax' as phase_cluster's do",
+    "mesh": "4 virtual shards on the one card "
+            "(parallel/mesh.set_virtual_device_count): the machine has "
+            "one card, so the merge across cards is not measured; the "
+            "rerank-512 full scans name topk_mode 'blockmax', which "
+            "'auto' would turn off at 250,000 rows a shard",
 }
 # each kernel's B=1024 time before its redesign, quoted from PERF.md
 # section 6 (not measured by this script): the CUDA-core block-max
@@ -235,10 +286,10 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def build_data(n=1_000_000, d=128, seed=0):
-    """bench.py's data: 5000 gaussian clusters, 1024 perturbed queries."""
+def build_data(n=1_000_000, d=128, seed=0, nc=5000):
+    """bench.py's data: `nc` (5000) gaussian clusters, 1024 perturbed
+    queries."""
     rng = np.random.default_rng(seed)
-    nc = 5000
     centers = (rng.standard_normal((nc, d)) * 3).astype(np.float32)
     which = rng.integers(0, nc, n)
     base = centers[which] + 0.7 * rng.standard_normal((n, d)).astype(
@@ -1178,6 +1229,191 @@ def phase_family(dev, base, queries, truth, graph_build) -> dict:
 
 # the engine phase's scalar filters (cat < 10 ~10%, tag = t3
 # ~12.5%, both ~1.25% through the (tag, cat) composite)
+# -- phase 3b: the mesh layer -------------------------------------------------
+
+MESH_SHARDS = 4  # virtual shards of the 4x1 mesh on the one card
+MESH_GATED = dict(GATED_PARAMS, topk_mode="blockmax")
+MESH_PROBE = dict(PROBE_PARAMS, **GATED_PARAMS)
+MESH_FLAT_ITERS = 1  # timed FLAT / FLAT_SHARDED searches (after a warm-up)
+
+
+def mesh_objective(dev, rows, cents, sample=200_000) -> float:
+    """Mean squared L2 distance of `sample` rows to their nearest
+    centroid (the k-means objective), on the card."""
+    import torch
+
+    x = torch.from_numpy(np.ascontiguousarray(rows[:sample])).to(dev)
+    c = cents.to(dev).float()
+    c_sq = (c * c).sum(1)
+    total = 0.0
+    for lo in range(0, x.shape[0], 65_536):
+        xc = x[lo:lo + 65_536].float()
+        d2 = (xc * xc).sum(1)[:, None] - 2.0 * xc @ c.T + c_sq[None, :]
+        total += float(d2.min(1).values.clamp_min(0).sum())
+    return total / x.shape[0]
+
+
+def ids_differing(a, b) -> int:
+    return int(sum(x != y for x, y in zip(a.keys, b.keys)))
+
+
+def phase_mesh(dev, base, queries, truth) -> tuple[dict, dict]:
+    """The mesh layer on the card at the main path's rows and width,
+    B=1024, through Engine: one IVFPQ engine (the main path's settings)
+    served single-device and through a 1x1 mesh (the card) and a 4x1
+    mesh of MESH_SHARDS virtual shards on it, in the full scan (rerank
+    512, topk_mode "blockmax") and the probe regime (nprobe 64, rerank
+    512); FLAT against FLAT_SHARDED over the 4x1 mesh; `mesh_train`
+    over the 4x1 mesh against the unsharded build; IVFRABITQ over both
+    meshes. Each path's launches are set to 0 just before it and read
+    just after."""
+    from vearch_tpu_torch.parallel import mesh as mesh_lib
+
+    n = len(base)
+    out, paths = {"rows": n, "virtual_shards": MESH_SHARDS}, {}
+    mesh_lib.set_virtual_device_count(MESH_SHARDS)
+    try:
+        # IVFPQ: single device, then the two meshes on the same engine
+        eng = main_engine({"mesh_serving": "off"})
+        out["ivfpq_build"] = ingest_and_build(eng, base)
+        unsharded = eng.indexes["emb"].centroids.clone()
+        res = {}
+        for name, params, tags in (
+                ("single_full", MESH_GATED, ["fused_scan_rerank"]),
+                ("single_probe", MESH_PROBE, ["probe_scan", "rerank"]),
+                ("mesh1x1_full", dict(MESH_GATED, mesh_serving="on",
+                                      mesh_shape="1x1"),
+                 ["sharded_fused_scan_rerank"]),
+                ("mesh1x1_probe", dict(MESH_PROBE, mesh_serving="on",
+                                       mesh_shape="1x1"),
+                 ["sharded_probe_scan_rerank"]),
+                ("mesh4x1_full", dict(MESH_GATED, mesh_serving="on",
+                                      mesh_shape="4x1"),
+                 ["sharded_fused_scan_rerank"]),
+                ("mesh4x1_probe", dict(MESH_PROBE, mesh_serving="on",
+                                       mesh_shape="4x1"),
+                 ["sharded_probe_scan_rerank"])):
+            paths[name], res[name] = run_path(eng, queries, params, truth)
+            check(paths[name]["tags"] == tags,
+                  f"mesh path {name} ran {paths[name]['tags']}")
+            check(paths[name]["recall_at_10"] >= 0.95,
+                  f"mesh path {name} recall@10 "
+                  f"{paths[name]['recall_at_10']} < 0.95")
+        searches = 4  # run_path: one search, then three timed
+        check(paths["single_full"]["launches"]["int8_blockmax_scan"]
+              == searches, "single-device full scan launches")
+        check(paths["mesh1x1_full"]["launches"]["int8_blockmax_scan"]
+              == searches, "the 1x1 mesh's full scan did not launch the "
+              "block-max kernel once a search")
+        check(paths["mesh4x1_full"]["launches"]["int8_blockmax_scan"]
+              == searches * MESH_SHARDS, "the 4x1 mesh's full scan did not "
+              "launch the block-max kernel once per shard")
+        # mesh and single-device ids are equal in both regimes, and a
+        # shard boundary moves no candidate (tests/test_torch_mesh.py
+        # holds the same on the CPU)
+        for key, a, b in (
+                ("full_ids_differing_1x1_vs_single", "mesh1x1_full",
+                 "single_full"),
+                ("full_ids_differing_4x1_vs_1x1", "mesh4x1_full",
+                 "mesh1x1_full"),
+                ("probe_ids_differing_1x1_vs_single", "mesh1x1_probe",
+                 "single_probe"),
+                ("probe_ids_differing_4x1_vs_1x1", "mesh4x1_probe",
+                 "mesh1x1_probe")):
+            out[key] = ids_differing(res[a], res[b])
+            check(out[key] == 0, f"{a} ids differ from {b}'s in "
+                  f"{out[key]} rows")
+        out["mesh_info"] = eng.mesh_info()
+        eng.apply_config({"mesh_serving": "on", "mesh_shape": "4x1"})
+        out["mesh_info_4x1"] = eng.mesh_info()
+        out["per_device_bytes_4x1"] = \
+            eng.indexes["emb"].device_footprint_per_device_bytes()
+        out["device_bytes_single"] = \
+            eng.indexes["emb"].device_footprint_bytes()
+        del res
+        eng.close()
+        del eng
+        release_device_memory()
+
+        # mesh_train over the 4x1 mesh against the unsharded build
+        eng = main_engine({"mesh_serving": "off", "mesh_train": True,
+                           "mesh_shape": "4x1"})
+        out["mesh_train_build"] = ingest_and_build(eng, base)
+        index = eng.indexes["emb"]
+        check(index.last_train_mesh == "4x1",
+              f"mesh_train trained on {index.last_train_mesh}")
+        out["objective_mesh_train"] = mesh_objective(dev, base,
+                                                     index.centroids)
+        out["objective_unsharded"] = mesh_objective(dev, base, unsharded)
+        for name, params in (("mesh_train_full", MESH_GATED),
+                             ("mesh_train_probe", MESH_PROBE)):
+            paths[name], _ = run_path(eng, queries, params, truth)
+        for name in ("full", "probe"):
+            check(paths[f"mesh_train_{name}"]["recall_at_10"]
+                  >= paths[f"single_{name}"]["recall_at_10"] - 0.01,
+                  f"mesh_train {name} recall below the unsharded build's")
+        check(out["objective_mesh_train"]
+              <= 1.02 * out["objective_unsharded"],
+              "mesh_train's k-means objective exceeds the unsharded "
+              "build's by more than 2%")
+        del index, unsharded
+        eng.close()
+        del eng
+        release_device_memory()
+
+        # FLAT against FLAT_SHARDED over the 4x1 mesh
+        flat_res = {}
+        for name, itype, params in (
+                ("flat", "FLAT", {}),
+                ("flat_sharded_4x1", "FLAT_SHARDED", {"mesh_shape": "4x1"})):
+            eng = family_engine(itype, "L2", dict(
+                params, store_dtype="bfloat16"))
+            out[f"{name}_build"] = ingest_and_build(eng, base)
+            paths[name], flat_res[name] = run_path(
+                eng, queries, {}, truth, iters=MESH_FLAT_ITERS)
+            eng.close()
+            del eng
+            release_device_memory()
+        check(paths["flat_sharded_4x1"]["tags"] == ["sharded_flat_scan"],
+              f"FLAT_SHARDED ran {paths['flat_sharded_4x1']['tags']}")
+        # the same exact f32 products in another GEMM shape: scores equal
+        # position by position within SCORE_TOL, ids apart from such ties
+        sharded, flat = flat_res["flat_sharded_4x1"], flat_res["flat"]
+        out["flat_rows_differing"] = ids_differing(sharded, flat)
+        out["flat_max_abs_score_diff"] = float(
+            np.abs(sharded.scores - flat.scores).max())
+        check(np.allclose(sharded.scores, flat.scores, rtol=SCORE_TOL[0],
+                          atol=SCORE_TOL[1]),
+              "FLAT_SHARDED's scores differ from FLAT's")
+        del flat_res, sharded, flat
+
+        # IVFRABITQ over the meshes
+        eng = family_engine("IVFRABITQ", "L2", {
+            "ncentroids": 2048, "nprobe": 64, "train_iters": 8,
+            "training_threshold": 10 ** 9, "store_dtype": "bfloat16"})
+        out["ivfrabitq_build"] = ingest_and_build(eng, base)
+        for name, params, tags in (
+                ("rabitq_single", {"rerank": 256},
+                 ["binary_refine_rerank"]),
+                ("rabitq_mesh1x1", {"rerank": 256, "mesh_serving": "on",
+                                    "mesh_shape": "1x1"},
+                 ["sharded_binary_refine_rerank"]),
+                ("rabitq_mesh4x1", {"rerank": 256, "mesh_serving": "on",
+                                    "mesh_shape": "4x1"},
+                 ["sharded_binary_refine_rerank"])):
+            paths[name], _ = run_path(eng, queries, params, truth)
+            check(paths[name]["tags"] == tags,
+                  f"{name} ran {paths[name]['tags']}")
+            check(paths[name]["recall_at_10"] >= 0.95,
+                  f"{name} recall@10 {paths[name]['recall_at_10']} < 0.95")
+        eng.close()
+        del eng
+    finally:
+        mesh_lib.set_virtual_device_count(None)
+        release_device_memory()
+    return out, paths
+
+
 ENGINE_FILTERS = {
     "cat_lt_10": {"operator": "AND", "conditions": [
         {"field": "cat", "operator": "<", "value": 10}]},
@@ -2469,13 +2705,13 @@ def cluster_space(d=128) -> dict:
     ]}
 
 
-def router_search(cl, queries, params, **kw):
+def router_search(cl, queries, params, space="s", **kw):
     """One search through the router: (ids [B][k] as row numbers, wall
     ms). B > 1 rides the columnar wire (scores as one f32 buffer)."""
     if len(queries) > 1:
         kw.update(fields=[], columnar=True)
     t0 = time.monotonic()
-    out = cl.search("db", "s", [{"field": "emb", "feature": queries}],
+    out = cl.search("db", space, [{"field": "emb", "feature": queries}],
                     limit=10, index_params=params, cache=False, **kw)
     ms = (time.monotonic() - t0) * 1e3
     return [[int(h["_id"][1:]) for h in row] for row in out], ms
@@ -2543,41 +2779,49 @@ def cluster_engine_alone(base, cats, queries, truth) -> dict:
     return out
 
 
-def cluster_counts(c) -> dict:
+def cluster_counts(c, pids=None) -> dict:
     """Each partition's doc count on each of its replicas (node id ->
-    count)."""
+    count), for the partitions `pids` (default: all) on running
+    servers."""
     out = {}
     for ps in c.ps_nodes:
+        if ps._stop.is_set():
+            continue
         for pid, eng in list(ps.engines.items()):
-            out.setdefault(str(pid), {})[str(ps.node_id)] = eng.doc_count
+            if pids is None or pid in pids:
+                out.setdefault(str(pid), {})[str(ps.node_id)] = \
+                    eng.doc_count
     return out
 
 
-def cluster_build(c, cl) -> dict:
+def cluster_build(c, cl, space="s") -> dict:
     """Every replica builds its own index: the leaders through the
     router's build route (/index/forcemerge, one partition server each,
     at once), then each follower through its partition server's
     /ps/index/build, one at a time. Seconds of each step."""
     from vearch_tpu_torch.cluster import rpc
 
-    sp = cl.get_space("db", "s")
+    sp = cl.get_space("db", space)
     leaders = {p["id"]: p["leader"] for p in sp["partitions"]}
     t0 = time.monotonic()
     rpc.call(c.router_addr, "POST", "/index/forcemerge",
-             {"db_name": "db", "space_name": "s"}, timeout=900.0)
+             {"db_name": "db", "space_name": space}, timeout=900.0)
     out = {"leaders_s": time.monotonic() - t0, "followers_s": []}
     for ps in c.ps_nodes:
+        if ps._stop.is_set():
+            continue
         for pid in sorted(ps.engines):
-            if leaders[pid] != ps.node_id:
+            if pid in leaders and leaders[pid] != ps.node_id:
                 t1 = time.monotonic()
                 rpc.call(ps.addr, "POST", "/ps/index/build",
                          {"partition_id": pid}, timeout=900.0)
                 out["followers_s"].append(time.monotonic() - t1)
     out["total_s"] = time.monotonic() - t0
     for ps in c.ps_nodes:
-        for pid, eng in ps.engines.items():
-            check(int(eng.status) == 3 and eng.indexes["emb"].trained,
-                  f"partition {pid} on node {ps.node_id} not built")
+        for pid, eng in list(ps.engines.items()):
+            if pid in leaders and not ps._stop.is_set():
+                check(int(eng.status) == 3 and eng.indexes["emb"].trained,
+                      f"partition {pid} on node {ps.node_id} not built")
     return out
 
 
@@ -2677,10 +2921,338 @@ def cluster_failover(c, cl, queries, truth, before) -> dict:
     return out
 
 
-def phase_cluster(dev, base, queries) -> tuple[dict, dict]:
+# -- phase 9b: elastic jobs and the operator surface on the card --------------
+
+ELASTIC_ROWS = 10_000  # the elastic space's seed docs (REDUCED)
+ELASTIC_WRITES = 1_000  # new docs the bounded writer adds during the split
+# ~80 rows a cell in each 5k-row child; nprobe 32 of 64 cells
+ELASTIC_PARAMS = {"ncentroids": 64, "nsubvector": 32, "train_iters": 8,
+                  "nprobe": 32, "training_threshold": 10 ** 9,
+                  "store_dtype": "bfloat16"}
+ELASTIC_REQUESTS = {
+    "full_rerank512": CLUSTER_GATED,
+    "probe_rerank512": dict(GATED_PARAMS, scan_mode="probe", nprobe=32),
+}
+ELASTIC_KERNELS = {"full_rerank512": "int8_blockmax_scan",
+                   "probe_rerank512": "ivf_probe_dots"}
+
+
+def elastic_space(d=128) -> dict:
+    return {"name": "e", "partition_num": 1, "replica_num": 3, "fields": [
+        {"name": "emb", "data_type": "vector", "dimension": d,
+         "index": {"index_type": "IVFPQ", "metric_type": "L2",
+                   "params": ELASTIC_PARAMS}}]}
+
+
+def wait_registered(c, ps, deadline_s=60.0) -> None:
+    from vearch_tpu_torch.cluster import rpc
+
+    deadline = time.monotonic() + deadline_s
+    while time.monotonic() < deadline:
+        servers = rpc.call(c.master_addr, "GET", "/servers")["servers"]
+        if any(s["node_id"] == ps.node_id for s in servers):
+            return
+        time.sleep(0.1)
+    check(False, f"partition server {ps.node_id} never registered")
+
+
+def elastic_searches(cl, queries, truth, tag) -> tuple[dict, dict]:
+    """The gated full scan and the probe regime through the router on
+    the elastic space; each must launch its kernel."""
+    res, ids = {}, {}
+    for name, params in ELASTIC_REQUESTS.items():
+        res[name], ids[name] = cluster_path(cl, queries, params, truth,
+                                            ELASTIC_KERNELS[name], space="e")
+        print(f"elastic_search {tag} {name} " + json.dumps(res[name]),
+              flush=True)
+    return res, ids
+
+
+def elastic_counts(c, cl, want, space="e", deadline_s=120.0) -> dict:
+    """Poll (with a deadline) until every replica of every partition of
+    `space` counts the same docs, each partition has 3 replicas on
+    running servers, and the partitions sum to `want`."""
+    deadline = time.monotonic() + deadline_s
+    while True:
+        pids = {p["id"] for p in cl.get_space("db", space)["partitions"]}
+        counts = cluster_counts(c, pids)
+        ok = (set(counts) == {str(p) for p in pids}
+              and all(len(r) == 3 and len(set(r.values())) == 1
+                      for r in counts.values())
+              and sum(next(iter(r.values())) for r in counts.values())
+              == want)
+        if ok or time.monotonic() > deadline:
+            check(ok, f"{space} doc counts {counts}, want {want}")
+            return counts
+        time.sleep(0.2)
+
+
+def rows_differing(a, b) -> int:
+    return int(sum(x != y for x, y in zip(a, b)))
+
+
+def elastic_data(d=128, b=1024, seed=7):
+    """bench.py's recipe at the elastic space's size and at its density
+    (200 rows a cluster, as 1M rows in 5000 clusters): ELASTIC_ROWS seed
+    rows and ELASTIC_WRITES more for the writer, and B queries perturbed
+    from seed rows (as build_data's are from its rows)."""
+    n = ELASTIC_ROWS + ELASTIC_WRITES
+    rows = build_data(n=n, d=d, seed=seed, nc=n // 200)[0]
+    rng = np.random.default_rng(seed + 1)
+    queries = rows[rng.choice(ELASTIC_ROWS, b, replace=False)] + 0.1 * \
+        rng.standard_normal((b, d)).astype(np.float32)
+    return rows, queries.astype(np.float32)
+
+
+# the doctor's violations this run may show, each with its cause; any
+# other violation fails the run
+DOCTOR_EXPECTED = {
+    "post_warmup_compiles": "the flight recorder's warm-up ends with the "
+                            "kernel builds at start, so every later first "
+                            "launch shape (split children, moved replicas) "
+                            "is a compile event after it",
+    "hbm_drift": "each partition server's sampler holds the process's "
+                 "allocated bytes against its own engines' models, and "
+                 "every server here shares one process and one card "
+                 "(reference semantics, ROADMAP queue 3)",
+    "cardinality_ceiling": "a partition server's /metrics page carries "
+                           "series per hosted partition, as the "
+                           "reference's does; after the split and the "
+                           "moves a server hosts 4-5 partitions, past "
+                           "the ceiling the 2-partition CI soak sets",
+}
+
+
+def phase_elastic(dev, c, cluster_ref, d=128) -> tuple[dict, dict]:
+    """The elastic jobs on phase_cluster's cluster `c` after its failover
+    (one server stopped; each partition of the space "s" left with 2
+    replicas): a fresh partition server joins and the master re-places
+    the lost "s" replicas on it (caught up by log replay); a space of
+    ELASTIC_ROWS docs (`elastic_data`: 1 partition x 3 replicas, IVFPQ at
+    full width) is built and searched; its partition splits while a
+    bounded writer adds ELASTIC_WRITES new docs; the children are built
+    and searched (both kernels on the children); a child's replica
+    migrates to a second fresh server and the first is drained, which
+    moves the re-placed "s" replicas too. Doc counts on every replica
+    must equal the seeds plus the acked writes (and the "s" rows); recall
+    @10 >= 0.95 before and after each job, on "s" too. Then the doctor
+    runs against the cluster. `cluster_ref` holds phase_cluster's
+    queries, truth, rows and ids before the failover."""
+    import threading
+
+    from vearch_tpu_torch.cluster import rpc
+    from vearch_tpu_torch.engine.types import MetricType
+    from vearch_tpu_torch.obs import doctor
+    from vearch_tpu_torch.sdk.client import VearchClient
+
+    # the elastic verbs go to the master, the searches to the router
+    cl = VearchClient(c.router_addr, master_addr=c.master_addr)
+    out, paths, times = {"rows": ELASTIC_ROWS,
+                         "reduced": REDUCED["elastic"]}, {}, {}
+    base, queries = elastic_data(d)
+    t_phase = time.monotonic()
+
+    def step(name):
+        print(f"elastic: {name} at {time.monotonic() - t_phase:.1f}s",
+              flush=True)
+
+    t0 = time.monotonic()
+    fresh_a = c.add_ps()
+    wait_registered(c, fresh_a)
+    s_pids = sorted(p["id"] for p in cl.get_space("db", "s")["partitions"])
+    cl.create_space("db", elastic_space(base.shape[1]))
+    for lo in range(0, ELASTIC_ROWS, CLUSTER_BATCH):
+        cl.upsert("db", "e", [{"_id": f"d{j}", "emb": base[j]} for j in
+                              range(lo, min(lo + CLUSTER_BATCH,
+                                            ELASTIC_ROWS))])
+    times["ingest"] = time.monotonic() - t0
+    step("ingested")
+    out["seed_counts"] = elastic_counts(c, cl, ELASTIC_ROWS)
+    out["build"] = cluster_build(c, cl, space="e")
+    step("built")
+    # the master re-placed the replicas the failover dropped on the fresh
+    # server (auto-recover), which caught up by log replay meanwhile
+    n_s = cluster_ref["rows"]
+    out["s_rereplicated_counts"] = elastic_counts(c, cl, n_s, space="s",
+                                                  deadline_s=600.0)
+    times["s_rereplicated"] = time.monotonic() - t_phase
+    check(all(str(fresh_a.node_id) in r
+              for r in out["s_rereplicated_counts"].values()),
+          "the fresh server holds no re-placed replica of every "
+          f"partition of s: {out['s_rereplicated_counts']}")
+    step("s re-replicated")
+    truth = exact_topk(dev, queries, base[:ELASTIC_ROWS], MetricType.L2)
+    before, ids_before = elastic_searches(cl, queries, truth, "before")
+    for name, res in before.items():
+        paths[f"before_{name}"] = res
+        check(res["recall_at_10"] >= 0.95,
+              f"elastic {name} recall@10 {res['recall_at_10']} < 0.95")
+
+    # the split, under a bounded writer of new docs
+    parent = cl.get_space("db", "e")["partitions"][0]["id"]
+    acked, errors = [], []
+
+    def writer():
+        from vearch_tpu_torch.sdk.client import VearchClient
+
+        wc = VearchClient(c.router_addr)
+        try:
+            for lo in range(ELASTIC_ROWS, ELASTIC_ROWS + ELASTIC_WRITES,
+                            200):
+                wc.upsert("db", "e", [{"_id": f"d{j}", "emb": base[j]}
+                                      for j in range(lo, lo + 200)])
+                acked.append(lo + 200)
+        except Exception as e:  # reported and failed below
+            errors.append(repr(e))
+
+    t = threading.Thread(target=writer, name="elastic-writer", daemon=True)
+    t0 = time.monotonic()
+    t.start()
+    job = cl.split_partition("db", "e", parent, timeout_s=300.0)
+    done = cl.wait_elastic_job(job["job_id"], timeout_s=300.0)
+    split_s = time.monotonic() - t0
+    t.join()
+    step("split")
+    check(not errors, f"elastic writer failed: {errors}")
+    check(done["status"] == "done", f"split job {done}")
+    rows = acked[-1] if acked else ELASTIC_ROWS
+    children = sorted(p["id"] for p in cl.get_space(
+        "db", "e")["partitions"])
+    check(len(children) == 2 and parent not in children,
+          f"split children {children}")
+    detail = done.get("detail") or {}
+    out["split"] = {"job_s": split_s, "parent": parent,
+                    "children": children, "acked_writes": rows - ELASTIC_ROWS,
+                    "detail": detail,
+                    "copy_docs_per_s": ELASTIC_ROWS / split_s}
+    # what a split of one of phase_cluster's partitions would take at
+    # this copy rate (REDUCED["elastic"])
+    out["split"]["projected_s_for_an_s_partition"] = (
+        n_s / len(s_pids)) / out["split"]["copy_docs_per_s"]
+    out["split_counts"] = elastic_counts(c, cl, rows)
+    for ps in c.ps_nodes:
+        if not ps._stop.is_set():
+            for pid, eng in list(ps.engines.items()):
+                if pid in children:
+                    check(eng.device.type == "cuda"
+                          and eng.vector_stores["emb"].device.type == "cuda",
+                          f"child {pid} on node {ps.node_id} is not on "
+                          "the card")
+    out["child_build"] = cluster_build(c, cl, space="e")
+    step("children built")
+    truth = exact_topk(dev, queries, base[:rows], MetricType.L2)
+    after, ids_after = elastic_searches(cl, queries, truth, "after_split")
+    for name, res in after.items():
+        paths[f"after_split_{name}"] = res
+        check(res["recall_at_10"] >= 0.95,
+              f"elastic {name} after the split: recall@10 "
+              f"{res['recall_at_10']} < 0.95")
+        res["rows_differing_before"] = rows_differing(ids_after[name],
+                                                      ids_before[name])
+    print("elastic_split " + json.dumps(out["split"]), flush=True)
+
+    # migrate a child's replica from the first fresh server to a second,
+    # then drain the first: its other child and the re-placed "s"
+    # replicas move too
+    t0 = time.monotonic()
+    fresh_b = c.add_ps()
+    wait_registered(c, fresh_b)
+    moved = next(p for p in cl.get_space("db", "e")["partitions"]
+                 if fresh_a.node_id in p["replicas"])
+    job = cl.migrate_partition(moved["id"], to_node=fresh_b.node_id,
+                               from_node=fresh_a.node_id, timeout_s=300.0)
+    mig = cl.wait_elastic_job(job["job_id"], timeout_s=300.0)
+    check(mig["status"] == "done", f"migrate job {mig}")
+    times["migrate"] = time.monotonic() - t0
+    step("migrated")
+    t0 = time.monotonic()
+    drain = cl.drain(fresh_a.node_id, apply=True)
+    if drain.get("job_id"):
+        drain = cl.wait_elastic_job(drain["job_id"], timeout_s=300.0)
+        check(drain["status"] == "done", f"drain job {drain}")
+    times["drain"] = time.monotonic() - t0
+    step("drained")
+    out["drain"] = {"moves": [
+        {k: m.get(k) for k in ("partition_id", "from_node", "to_node",
+                               "status")} for m in drain.get("steps", [])]}
+    check({m["partition_id"] for m in out["drain"]["moves"]} >= set(s_pids),
+          f"the drain did not move the s replicas: {out['drain']}")
+    servers = rpc.call(c.master_addr, "GET", "/servers")["servers"]
+    left = next(s for s in servers if s["node_id"] == fresh_a.node_id)
+    check(left["partition_ids"] == [], f"drained server holds {left}")
+    out["migrated_partition"] = moved["id"]
+    out["moved_counts"] = elastic_counts(c, cl, rows)
+    out["s_moved_counts"] = elastic_counts(c, cl, n_s, space="s")
+    check(all(str(fresh_b.node_id) in r
+              for r in out["s_moved_counts"].values()),
+          f"s replicas not on the drain's target: {out['s_moved_counts']}")
+    # a moved replica arrives unindexed, as the reference's does (its
+    # snapshot carries the rows, not the index): build it before the
+    # searches, or a hedge or a promoted leader answers by brute force
+    out["moved_build"] = cluster_build(c, cl, space="e")
+    out["s_moved_build"] = cluster_build(c, cl, space="s")
+    step("moved replicas built")
+    for ps in c.ps_nodes:
+        if not ps._stop.is_set():
+            for pid, eng in list(ps.engines.items()):
+                if pid in children or pid in s_pids:
+                    check(eng.device.type == "cuda",
+                          f"moved replica {pid} on node {ps.node_id} is "
+                          "not on the card")
+    moved_res, ids_moved = elastic_searches(cl, queries, truth, "after_moves")
+    for name, res in moved_res.items():
+        paths[f"after_moves_{name}"] = res
+        check(res["recall_at_10"] >= 0.95,
+              f"elastic {name} after the moves: recall@10 "
+              f"{res['recall_at_10']} < 0.95")
+        res["rows_differing_after_split"] = rows_differing(
+            ids_moved[name], ids_after[name])
+    # the cluster's own space after its replicas moved: recall held
+    res, ids = cluster_path(cl, cluster_ref["queries"], CLUSTER_GATED,
+                            cluster_ref["truth"], "int8_blockmax_scan")
+    check(res["recall_at_10"] >= 0.95,
+          f"s recall@10 after the drain {res['recall_at_10']} < 0.95")
+    res["rows_differing_before_failover"] = rows_differing(
+        ids, cluster_ref["before"])
+    paths["s_after_drain"] = res
+    print("elastic_search s_after_drain " + json.dumps(res), flush=True)
+    out["searches"] = {"before": before, "after_split": after,
+                       "after_moves": moved_res, "s_after_drain": res}
+
+    # the operator surface: the doctor over this cluster; no gRPC here
+    t0 = time.monotonic()
+    report, code = doctor.run(c.master_addr)
+    out["doctor"] = {"exit_code": code,
+                     "checks": {ch["name"]: ch["ok"]
+                                for ch in report["checks"]},
+                     "violations": [v["name"] for v in report["violations"]],
+                     "seconds": time.monotonic() - t0}
+    print("doctor " + json.dumps(out["doctor"]), flush=True)
+    print(doctor.format_report(report), flush=True)
+    out["doctor"]["causes"] = {v: DOCTOR_EXPECTED.get(v, "unexplained")
+                               for v in out["doctor"]["violations"]}
+    check(code in (0, 1) and set(out["doctor"]["violations"])
+          <= set(DOCTOR_EXPECTED),
+          f"doctor exit {code}: unexplained violations "
+          f"{sorted(set(out['doctor']['violations']) - set(DOCTOR_EXPECTED))}")
+    import importlib.util
+
+    out["grpc"] = ("not run on the card: grpcio is "
+                   + ("importable here, but the front end is host-only "
+                      "transport, held on the CPU by the tests"
+                      if importlib.util.find_spec("grpc") else
+                      "not installed on this machine"))
+    print("grpc: " + out["grpc"], flush=True)
+    out["seconds"] = times
+    return out, paths
+
+
+def phase_cluster(dev, base, queries) -> tuple[dict, dict, tuple]:
     """The port's cluster plane on the card: StandaloneCluster (master,
     router, 3 partition servers, no device argument: the card), driven
-    through the port's SDK."""
+    through the port's SDK; then phase_elastic on the same cluster after
+    its failover. Returns phase_elastic's (out, paths) third; its seconds
+    are out["seconds"]["elastic"]."""
     from vearch_tpu_torch.cluster.standalone import StandaloneCluster
     from vearch_tpu_torch.engine.types import MetricType
     from vearch_tpu_torch.sdk.client import VearchClient
@@ -2807,6 +3379,12 @@ def phase_cluster(dev, base, queries) -> tuple[dict, dict]:
         paths["failover"] = fo["search"]
         times["failover"] = time.monotonic() - t0
         print("cluster_failover " + json.dumps(fo), flush=True)
+
+        t0 = time.monotonic()
+        elastic = phase_elastic(dev, c, {
+            "rows": n, "queries": queries, "truth": truth,
+            "before": before}, base.shape[1])
+        times["elastic"] = time.monotonic() - t0
     finally:
         t0 = time.monotonic()
         c.stop()
@@ -2815,7 +3393,7 @@ def phase_cluster(dev, base, queries) -> tuple[dict, dict]:
         release_device_memory()
         times["stop"] = time.monotonic() - t0
     out["seconds"] = times
-    return out, paths
+    return out, paths, elastic
 
 
 def profile_search(eng, req, ranges=()) -> dict:
@@ -2998,6 +3576,10 @@ def main() -> int:
     del index, a8, sc, vs, valid, q, probes
     release_device_memory()
     t0 = time.monotonic()
+    mesh, mesh_paths = phase_mesh(dev, base, queries, truth)
+    print("mesh " + json.dumps(mesh), flush=True)
+    print(f"phase mesh: {time.monotonic() - t0:.1f}s", flush=True)
+    t0 = time.monotonic()
     engine, engine_paths = phase_engine(dev, base, queries)
     print("engine " + json.dumps(engine), flush=True)
     print(f"phase engine: {time.monotonic() - t0:.1f}s", flush=True)
@@ -3024,12 +3606,18 @@ def main() -> int:
     print("storage " + json.dumps(storage), flush=True)
     print(f"phase storage_modes: {time.monotonic() - t0:.1f}s", flush=True)
     t0 = time.monotonic()
-    cluster, cluster_paths = phase_cluster(dev, base, queries)
+    cluster, cluster_paths, (elastic, elastic_paths) = phase_cluster(
+        dev, base, queries)
     print("cluster " + json.dumps(cluster), flush=True)
-    print(f"phase cluster: {time.monotonic() - t0:.1f}s", flush=True)
+    print("elastic " + json.dumps(elastic), flush=True)
+    elastic_s = cluster["seconds"]["elastic"]
+    print(f"phase cluster: {time.monotonic() - t0 - elastic_s:.1f}s",
+          flush=True)
+    print(f"phase elastic: {elastic_s:.1f}s", flush=True)
     footprint_table()
     paths = dict(family, engine=engine_paths, **disk_paths, **runtime_paths,
-                 **storage_paths, cluster=cluster_paths)
+                 **storage_paths, mesh=mesh_paths, cluster=cluster_paths,
+                 elastic=elastic_paths)
     dres = disk["kernel_case"]
     kernels = [
         {"name": "int8_blockmax_scan", "route": "cuda",

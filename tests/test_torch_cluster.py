@@ -4,8 +4,9 @@ tools/lockcheck.py, native/) held against the reference's on the CPU.
 - Source copies: every module of the cluster plane that touches no device
   is the reference's file with its imports rewritten (`vearch_tpu.` ->
   `vearch_tpu_torch.`); the tests hold each copy equal to the reference
-  after the same rewrite, and the modules that change (ps.py, utils,
-  standalone.py, __main__.py) equal to it after their stated edits.
+  after the same rewrite, and the modules that change (ps.py, raft.py,
+  wal.py, utils, standalone.py, __main__.py) equal to it after their
+  stated edits.
   csrc/vearch_native.cpp is byte-equal, and the port's murmur3 slots are
   the reference's, so a doc lands in the same partition in both packages.
 - Same docs, four clusters: a reference cluster, a port cluster, and two
@@ -92,10 +93,121 @@ def _replace(src: str, old: str, new: str) -> str:
     return src.replace(old, new)
 
 
+# raft.py's departure (and wal.py's part of it): an append RPC carries at
+# most APPEND_MAX_BYTES of logged entries, where the reference sends up to
+# 512 entries whatever their size (test_torch_cluster_raft.py shows why)
+STATED_EDITS = {
+    "cluster/raft.py": [
+        ('''followers that fell behind the truncation horizon.
+"""''', '''followers that fell behind the truncation horizon.
+
+The port's copy of vearch_tpu/cluster/raft.py, with one departure: an
+append carries at most APPEND_MAX_BYTES of logged entries (at least
+one), where the reference sends up to 512 entries whatever their size.
+A replica catching up a log of large writes otherwise gets it all in
+one RPC that does not finish within the RPC timeout, and the leader
+resends the same batch without end.
+"""'''),
+        ("SNAP_CHUNK = 4 << 20  # 4 MB per snapshot chunk (reference "
+         "streams 10MB)\n",
+         "SNAP_CHUNK = 4 << 20  # 4 MB per snapshot chunk (reference "
+         "streams 10MB)\n"
+         "# logged bytes per append RPC (at least one entry): a follower "
+         "or learner\n"
+         "# catching up from far behind gets the log in bounded batches, "
+         "each well\n"
+         "# inside the 30 s RPC timeout, as the snapshot stream is "
+         "chunked\n"
+         "APPEND_MAX_BYTES = 8 << 20\n"),
+        ('''                entries = self.wal.entries_from(ni) if prev_term is not None \\
+                    else []''', '''                entries = self.wal.entries_from(
+                    ni, max_bytes=APPEND_MAX_BYTES) \\
+                    if prev_term is not None else []'''),
+    ],
+    "cluster/wal.py": [
+        ('''(tmp+rename atomic) records first_index / term / commit_index.
+"""''', '''(tmp+rename atomic) records first_index / term / commit_index.
+
+The port's copy of vearch_tpu/cluster/wal.py, with one departure for
+raft.py's: the log keeps each entry's payload size, and `entries_from`
+can bound a batch by those bytes.
+"""'''),
+        ('''        "_entries": "_lock",
+''', '''        "_entries": "_lock",
+        "_sizes": "_lock",
+'''),
+        ('''        self._entries: list[dict] = []
+''', '''        self._entries: list[dict] = []
+        # each entry's payload bytes as logged, in lockstep with
+        # _entries: entries_from bounds a batch by them
+        self._sizes: list[int] = []
+'''),
+        ('''                self._entries.append(json.loads(payload))
+''', '''                self._entries.append(json.loads(payload))
+                self._sizes.append(ln)
+'''),
+        ('''            self._entries.pop(0)
+''', '''            self._entries.pop(0)
+            self._sizes.pop(0)
+'''),
+        ('''    def entries_from(self, index: int, max_n: int = 512) -> list[dict]:
+        with self._lock:
+            i = max(0, index - self.first_index)
+            return list(self._entries[i : i + max_n])
+''', '''    def entries_from(self, index: int, max_n: int = 512,
+                     max_bytes: int | None = None) -> list[dict]:
+        """Up to max_n entries from `index`; with max_bytes, only as many
+        as fit in that many logged payload bytes (at least one)."""
+        with self._lock:
+            i = max(0, index - self.first_index)
+            out = self._entries[i : i + max_n]
+            if max_bytes is not None:
+                total = 0
+                for j, size in enumerate(self._sizes[i : i + len(out)]):
+                    total += size
+                    if total > max_bytes and j > 0:
+                        out = out[:j]
+                        break
+            return list(out)
+'''),
+        ('''            buf = bytearray()
+            for e in entries:
+''', '''            buf = bytearray()
+            sizes = []
+            for e in entries:
+'''),
+        ('''                buf += payload
+''', '''                buf += payload
+                sizes.append(len(payload))
+'''),
+        ('''            self._entries.extend(entries)
+''', '''            self._entries.extend(entries)
+            self._sizes.extend(sizes)
+'''),
+        ('''            self._entries = self._entries[:keep]
+''', '''            self._entries = self._entries[:keep]
+            self._sizes = self._sizes[:keep]
+'''),
+        ('''            self._entries = self._entries[drop:]
+''', '''            self._entries = self._entries[drop:]
+            self._sizes = self._sizes[drop:]
+'''),
+        ('''            self._entries = []
+''', '''            self._entries = []
+            self._sizes = []
+'''),
+    ],
+}
+
+
 @pytest.mark.parametrize("path", COPIES)
 def test_copy_equals_reference_after_import_rewrite(path):
-    assert _read("vearch_tpu_torch", path) == rewrite_imports(
-        _read("vearch_tpu", path))
+    """Each copy is the reference's file after the import rewrite and its
+    STATED_EDITS (none for most)."""
+    ref = rewrite_imports(_read("vearch_tpu", path))
+    for old, new in STATED_EDITS.get(path, []):
+        ref = _replace(ref, old, new)
+    assert _read("vearch_tpu_torch", path) == ref
 
 
 def test_ps_differs_from_reference_only_by_its_device():
@@ -421,15 +533,25 @@ def test_launcher_ps_without_device_raises_without_gpu(tmp_path):
 
 
 @pytest.mark.parametrize("verb", ["doctor", "split", "rebalance"])
-def test_launcher_operator_verbs_are_not_ported_yet(verb):
+def test_launcher_operator_verbs_are_not_ported_yet(verb, capsys):
+    """The operator verbs are ported now (tests/test_torch_operator.py
+    drives them against a port cluster): the launcher hands each to its
+    own parser, as the reference's does."""
     from vearch_tpu_torch.__main__ import main
 
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        main([verb])
+    with pytest.raises(SystemExit) as exc:
+        main([verb, "--help"])
+    assert exc.value.code == 0
+    assert "usage:" in capsys.readouterr().out
 
 
 def test_router_grpc_front_end_is_not_ported_yet():
-    from vearch_tpu_torch.cluster.grpc_server import GrpcRouter
-
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        GrpcRouter(None, host="127.0.0.1", port=0)
+    """The gRPC front end is ported now: the reference's module with its
+    imports rewritten, the service keeping the proto's package name
+    (`vearch_tpu.Router`, api/vearch.proto), so either package's clients
+    reach either router (tests/test_torch_operator.py serves it)."""
+    ref = rewrite_imports(_read("vearch_tpu", "cluster", "grpc_server.py"))
+    ref = _replace(ref, '"vearch_tpu_torch.Router"', '"vearch_tpu.Router"')
+    ref = _replace(ref, "discipline as vearch_tpu/native)",
+                   "discipline as vearch_tpu_torch/native)")
+    assert _read("vearch_tpu_torch", "cluster", "grpc_server.py") == ref

@@ -12,11 +12,16 @@ dirs opened by the port, on the CPU.
 - A follower caught up by a raft snapshot, and a partition restored from
   a local-objectstore backup, each serve the ids of the partition they
   came from.
+- A replica catching up by log replay: the reference's leader sends the
+  whole log in one append (up to 512 entries, whatever their size); the
+  port's sends it in batches of at most raft.APPEND_MAX_BYTES logged
+  bytes (or one entry), and the replica ends with every doc in both.
 
 Every port partition server runs on device="cpu". Clusters poll with
 deadlines and are stopped in `finally`.
 """
 
+import json
 import os
 import time
 
@@ -26,10 +31,13 @@ import pytest
 from vearch_tpu.cluster.master import MasterServer as RefMaster
 from vearch_tpu.cluster.ps import PSServer as RefPS
 from vearch_tpu.cluster.router import RouterServer as RefRouter
+from vearch_tpu.cluster.wal import Wal as RefWal
 import vearch_tpu_torch.cluster.ps as port_ps
+import vearch_tpu_torch.cluster.raft as port_raft
 from vearch_tpu_torch.cluster import rpc
 from vearch_tpu_torch.cluster.master import MasterServer as PortMaster
 from vearch_tpu_torch.cluster.router import RouterServer as PortRouter
+from vearch_tpu_torch.cluster.wal import Wal as PortWal
 from vearch_tpu_torch.sdk.client import VearchClient
 
 D = 32
@@ -275,5 +283,98 @@ def test_backup_restore_serves_the_backed_up_ids(tmp_path, data):
         got = _search(c.client, q)
         assert got[0] == want[0]
         np.testing.assert_allclose(got[1], want[1], rtol=RTOL, atol=ATOL)
+    finally:
+        c.stop()
+
+
+def _logged(entry) -> int:
+    return len(json.dumps(entry).encode())
+
+
+def test_wal_bounds_a_batch_by_logged_bytes(tmp_path):
+    """entries_from without max_bytes is the reference's batch (by count
+    only); with it, the longest prefix within max_bytes, at least one
+    entry, kept true across a reopen and both truncations."""
+    rng = np.random.default_rng(3)
+    entries = [{"index": i + 1, "term": 1, "op": {"type": "upsert", "docs": [
+        {"_id": f"d{i}_{j}", "v": rng.standard_normal(D).tolist()}
+        for j in range(1 + i % 4)]}} for i in range(12)]
+    sizes = [_logged(e) for e in entries]
+    ref, port = RefWal(str(tmp_path / "ref")), PortWal(str(tmp_path / "port"))
+    ref.append(entries)
+    port.append(entries)
+    assert ref.entries_from(1) == port.entries_from(1) == entries
+
+    def expect(start, budget, end=None):
+        out, total = [], 0
+        for e, size in zip(entries[start - 1:end], sizes[start - 1:end]):
+            total += size
+            if out and total > budget:
+                break
+            out.append(e)
+        return out
+
+    for budget in (1, sizes[0], sizes[0] + sizes[1], 3 * max(sizes)):
+        assert port.entries_from(1, max_bytes=budget) == expect(1, budget)
+        assert port.entries_from(5, max_bytes=budget) == expect(5, budget)
+    port.close()
+    port = PortWal(str(tmp_path / "port"))  # sizes read back from the file
+    budget = sizes[0] + sizes[1] + sizes[2]
+    assert port.entries_from(1, max_bytes=budget) == expect(1, budget)
+    port.truncate_prefix(4)
+    assert port.entries_from(4, max_bytes=budget) == expect(4, budget)
+    port.truncate_suffix(9)
+    assert port.entries_from(7, max_bytes=10 ** 9) == expect(7, 10 ** 9, 8)
+    port.reset(20)
+    assert port.entries_from(20, max_bytes=budget) == []
+    port.close()
+    ref.close()
+
+
+@pytest.mark.parametrize("port", [True, False], ids=["port", "reference"])
+def test_replica_catches_up_a_log_by_bounded_appends(tmp_path, data, port,
+                                                     monkeypatch):
+    _x, _q, docs = data
+    ps_cls = port_ps.PSServer if port else RefPS
+    appends = []
+    real = ps_cls._raft_send
+
+    def spy(self, peer, path, body):
+        if path.endswith("/append") and body.get("entries"):
+            appends.append((peer, [_logged(e) for e in body["entries"]]))
+        return real(self, peer, path, body)
+
+    monkeypatch.setattr(ps_cls, "_raft_send", spy)
+    c = _Cluster(str(tmp_path), 1, port=port, ttl=3600.0)
+    try:
+        c.client.create_database("db")
+        c.client.create_space("db", _space(1))
+        pid = c.client.get_space("db", "s")["partitions"][0]["id"]
+        for i in range(0, N, 150):  # one log entry per call
+            c.client.upsert("db", "s", docs[i:i + 150])
+        lead = c.ps[0]
+        sizes = [_logged(e) for e in lead.raft_nodes[pid].wal.entries_from(1)]
+        assert len(sizes) == N // 150
+        cap = int(2.5 * max(sizes))  # two entries a batch
+        monkeypatch.setattr(port_raft, "APPEND_MAX_BYTES", cap)
+        fresh = c.start_ps(os.path.join(str(tmp_path), "fresh"))
+        c.ps.append(fresh)
+        wait_for(lambda: any(
+            s["node_id"] == fresh.node_id for s in rpc.call(
+                c.master.addr, "GET", "/servers")["servers"]),
+            msg="fresh PS never registered")
+        rpc.call(c.master.addr, "POST", "/partitions/change_member",
+                 {"partition_id": pid, "node_id": fresh.node_id,
+                  "method": "add"})
+        wait_for(lambda: pid in fresh.engines
+                 and fresh.engines[pid].doc_count == N,
+                 msg="log-replay catch-up failed")
+        batches = [b for peer, b in appends if peer == fresh.node_id]
+        assert sum(len(b) for b in batches) == len(sizes)
+        if port:
+            assert len(batches) >= len(sizes) // 2
+            assert all(len(b) == 1 or sum(b) <= cap for b in batches)
+        else:  # the reference: the whole log in one append
+            assert [len(b) for b in batches] == [len(sizes)]
     finally:
         c.stop()

@@ -179,11 +179,13 @@ def test_admin_surface_warmup_rebuild_refresh_and_mesh():
             break
         threading.Event().wait(0.05)
     assert eng.indexes["emb"].indexed_count == 601
-    # mesh settings fan into the index params; "on" raises at search time
+    # mesh settings fan into the index params: "on" serves through the
+    # 1x1 mesh with the single-device keys
     eng.apply_config({"mesh_shape": "1x1", "mesh_serving": "on"})
     assert eng.indexes["emb"].params.get("mesh_shape") == "1x1"
-    with pytest.raises(NotImplementedError):
-        eng._search_direct(req)
+    assert [r.items[0].key for r in eng._search_direct(req)] == \
+        [f"s{i}" for i in range(4)]
+    assert eng.mesh_info()["fields"]["emb"]["data_shards"] == 1
     eng.apply_config({"mesh_serving": "off"})
     eng.close()
     assert not eng._refresh_thread.is_alive()

@@ -154,23 +154,21 @@ def test_registry_resolves_new_types(name):
                                        ("DISKANN_STATIC", "item 7"),
                                        ("FLAT_SHARDED", "item 10")])
 def test_not_ported_types_raise(name, item):
-    """A type the port does not serve raises naming its ROADMAP item;
-    DISKANN and DISKANN_STATIC came with item 7 and now resolve to the
-    reference's class (tests/test_torch_disk.py holds them to it)."""
-    if name not in registry.NOT_PORTED:
-        assert item == "item 7"
-        idx = registry.create_index(pt.IndexParams(name), _store())
-        ref = ref_registry.create_index(rt.IndexParams(name), RefStore(D))
-        assert type(idx).__name__ == type(ref).__name__ == "DiskANNIndex"
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        registry.create_index(pt.IndexParams(name), _store())
+    """Every type the reference registers now resolves to the reference's
+    class: DISKANN and DISKANN_STATIC came with item 7
+    (tests/test_torch_disk.py holds them to it), FLAT_SHARDED with item
+    10 (tests/test_torch_mesh.py)."""
+    idx = registry.create_index(pt.IndexParams(name), _store())
+    ref = ref_registry.create_index(rt.IndexParams(name), RefStore(D))
+    assert type(idx).__name__ == type(ref).__name__ == {
+        "item 7": "DiskANNIndex", "item 10": "ShardedFlatIndex"}[item]
+    assert registry.registered_types() == ref_registry.registered_types()
 
 
 def test_sharded_flat_and_unknown_types():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        registry.create_index(pt.IndexParams("FLAT", params={"sharded": 1}),
-                              _store())
+    idx = registry.create_index(pt.IndexParams("FLAT", params={"sharded": 1}),
+                                _store())
+    assert type(idx).__name__ == "ShardedFlatIndex"
     with pytest.raises(ValueError, match="unknown index_type"):
         registry.create_index(pt.IndexParams("NOPE"), _store())
 
@@ -227,8 +225,13 @@ def test_ivfrabitq_refuses_what_is_not_ported():
                  device="cpu")
     assert eng.indexes["emb"]._mirror.storage == "int4"
     ref, port, queries = _engines("IVFRABITQ", "L2")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _search(port, SearchRequest, queries, {"mesh_serving": "on"})
+    # the mesh branch serves now (tests/test_torch_mesh.py holds it to
+    # the reference's): a 1x1 mesh returns the single-device keys
+    keys = [[it.key for it in r.items] for r in _search(
+        port, SearchRequest, queries, {"mesh_serving": "on",
+                                       "mesh_shape": "1x1"})]
+    assert keys == [[it.key for it in r.items]
+                    for r in _search(port, SearchRequest, queries)]
     with pytest.raises(ValueError, match="stage0"):
         _search(port, SearchRequest, queries, {"stage0": "ternary"})
 

@@ -1,8 +1,9 @@
 """vearch_tpu_torch stands alone: importing every one of its modules,
 serving a bf16 disk store under DISKANN, and serving an int4-mirror and
 an OPQ IVFPQ index under the runtime layer (accountant, flight recorder,
-quality monitor, device sampler), and serving a CPU cluster (master,
-router, partition servers) through the port's SDK pulls in neither JAX,
+quality monitor, device sampler), serving a CPU cluster (master,
+router, partition servers) through the port's SDK, and serving
+FLAT_SHARDED and an IVFPQ mesh over virtual shards pulls in neither JAX,
 nor anything of vearch_tpu, nor ml_dtypes (the GPU machine has none), and
 its entry points refuse to run on the CPU unless asked to."""
 
@@ -96,6 +97,30 @@ try:
                        limit=1)[0][0]["_id"]
 finally:
     cluster.stop()
+# the mesh layer: FLAT_SHARDED and IVFPQ over four virtual CPU shards,
+# and the doctor against no cluster at all (its report, not its fetches)
+from vearch_tpu_torch.ops import ivf as ivf_ops
+from vearch_tpu_torch.parallel import mesh as mesh_lib
+from vearch_tpu_torch.obs import doctor
+mesh_lib.set_virtual_device_count(4)
+mesh_tags = []
+ivf_ops.set_dispatch_ledger(mesh_tags)
+for itype, params in (("FLAT_SHARDED", {}),
+                      ("IVFPQ", {"ncentroids": 2, "nsubvector": 2,
+                                 "train_iters": 2, "mesh_serving": "on"})):
+    s3 = TableSchema("m", [FieldSchema(
+        "emb", DataType.VECTOR, dimension=8,
+        index=IndexParams(itype, MetricType.L2, params))])
+    e3 = Engine(s3, device="cpu")
+    e3.upsert([{"_id": str(i), "emb": [float(i % 7), 1.0] * 4}
+               for i in range(300)])
+    e3.build_index()
+    e3._search_direct(SearchRequest(vectors={"emb": np.ones((2, 8),
+                                                          np.float32)}, k=3))
+    e3.close()
+ivf_ops.set_dispatch_ledger(None)
+mesh_lib.set_virtual_device_count(None)
+doctor.run_checks({"ps": [], "routers": []})
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "vearch_tpu" or m.startswith("vearch_tpu.")
@@ -108,7 +133,7 @@ ref_pkg = os.path.join(os.getcwd(), "vearch_tpu") + os.sep
 loaded = sorted(getattr(m, "__file__", None) or "" for m in
                 list(sys.modules.values()))
 print(json.dumps({"modules": names, "bad": bad, "refused": refused,
-                  "served": served,
+                  "served": served, "mesh": mesh_tags,
                   "hnsw": LIBRARY.path,
                   "from_ref": [f for f in loaded if f.startswith(ref_pkg)]}))
 """
@@ -175,8 +200,17 @@ def test_port_imports_no_jax_and_needs_explicit_cpu():
                 "vearch_tpu_torch.cluster.rpc",
                 "vearch_tpu_torch.cluster.standalone",
                 "vearch_tpu_torch.cluster.tracing",
-                "vearch_tpu_torch.cluster.wal"):
+                "vearch_tpu_torch.cluster.wal",
+                "vearch_tpu_torch.parallel.mesh",
+                "vearch_tpu_torch.parallel.sharded",
+                "vearch_tpu_torch.index.sharded_flat",
+                "vearch_tpu_torch.index.builtin",
+                "vearch_tpu_torch.obs.doctor",
+                "vearch_tpu_torch.obs.obs_docs",
+                "vearch_tpu_torch.tools.backup_cli",
+                "vearch_tpu_torch.tools.elastic_cli"):
         assert mod in got["modules"]
+    assert got["mesh"] == ["sharded_flat_scan", "sharded_fused_scan_rerank"]
     assert got["refused"] is True
     assert got["served"] == "d7"
     assert got["from_ref"] == []

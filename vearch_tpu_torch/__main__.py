@@ -4,11 +4,11 @@ The reference ships one binary that runs any combination of roles by CLI
 tag (reference: cmd/vearch/startup.go:87,112-120). Same shape here; each
 role blocks until SIGINT.
 
-The port's launcher is vearch_tpu/__main__.py's with two departures: the
+The port's launcher is vearch_tpu/__main__.py's with one departure: the
 partition servers' engines run on `--device` (default: the card; with no
-GPU visible a ps or standalone role raises at start), and the operator
-verbs (`elastic` and `doctor`) are not ported yet (ROADMAP queue 1 item
-9b): they raise NotImplementedError.
+GPU visible a ps or standalone role raises at start). The operator verbs
+(`rebalance`, `drain`, `split`, `migrate`, `plan`, `jobs`, `doctor`)
+dispatch as the reference's do.
 """
 
 from __future__ import annotations
@@ -25,10 +25,18 @@ ELASTIC_VERBS = ("rebalance", "drain", "split", "migrate", "plan", "jobs")
 def main(argv: list[str] | None = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
-    if argv and (argv[0] in ELASTIC_VERBS or argv[0] == "doctor"):
-        raise NotImplementedError(
-            f"`{argv[0]}` (the elasticity CLI and the cluster doctor) is not "
-            "ported to vearch_tpu_torch yet: ROADMAP queue 1 item 9b")
+    if argv and argv[0] in ELASTIC_VERBS:
+        # operator verbs (`vearch_tpu_torch rebalance`, `... drain 3`)
+        # delegate to the elasticity CLI — same binary, no role daemon
+        from vearch_tpu_torch.tools.elastic_cli import main as elastic_main
+
+        return elastic_main(argv)
+    if argv and argv[0] == "doctor":
+        # cluster doctor: fan out, collect evidence, check the standing
+        # runtime invariants, exit non-zero on any violation
+        from vearch_tpu_torch.obs.doctor import main as doctor_main
+
+        return doctor_main(argv[1:])
 
     ap = argparse.ArgumentParser(prog="vearch_tpu_torch")
     ap.add_argument("--role", default="standalone",

@@ -24,6 +24,13 @@ Everything else is the classic algorithm: append-only WAL, quorum ack
 before the client ack, follower conflict truncation, next_index backoff
 catch-up, log-compaction behind flush with snapshot install for
 followers that fell behind the truncation horizon.
+
+The port's copy of vearch_tpu/cluster/raft.py, with one departure: an
+append carries at most APPEND_MAX_BYTES of logged entries (at least
+one), where the reference sends up to 512 entries whatever their size.
+A replica catching up a log of large writes otherwise gets it all in
+one RPC that does not finish within the RPC timeout, and the leader
+resends the same batch without end.
 """
 
 from __future__ import annotations
@@ -41,6 +48,10 @@ from vearch_tpu_torch.cluster.wal import Wal
 from vearch_tpu_torch.tools import lockcheck
 
 SNAP_CHUNK = 4 << 20  # 4 MB per snapshot chunk (reference streams 10MB)
+# logged bytes per append RPC (at least one entry): a follower or learner
+# catching up from far behind gets the log in bounded batches, each well
+# inside the 30 s RPC timeout, as the snapshot stream is chunked
+APPEND_MAX_BYTES = 8 << 20
 
 
 @lockcheck.guarded
@@ -454,8 +465,9 @@ class RaftNode:
                     # behind-horizon snapshot resolves it.
                     prev_term = -1
                 commit = self.commit
-                entries = self.wal.entries_from(ni) if prev_term is not None \
-                    else []
+                entries = self.wal.entries_from(
+                    ni, max_bytes=APPEND_MAX_BYTES) \
+                    if prev_term is not None else []
             if prev_term is None:
                 # the entry before next_index was compacted away: the
                 # follower is genuinely behind the log horizon -> full

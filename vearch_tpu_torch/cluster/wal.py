@@ -12,6 +12,10 @@ On-disk format, one file per partition (`wal.log`):
 Recovery stops at the first short/corrupt record (torn tail from a
 crash) and truncates the file there. A sidecar `wal.meta.json`
 (tmp+rename atomic) records first_index / term / commit_index.
+
+The port's copy of vearch_tpu/cluster/wal.py, with one departure for
+raft.py's: the log keeps each entry's payload size, and `entries_from`
+can bound a batch by those bytes.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ class Wal:
     # reads them back under its own when persisting meta).
     _guarded_by = {
         "_entries": "_lock",
+        "_sizes": "_lock",
         "first_index": "_lock",
         "horizon_term": "_lock",
     }
@@ -50,6 +55,9 @@ class Wal:
         # in-memory mirror: entry dicts {"index", "term", "op"} — the log
         # tail is bounded by flush-truncation, so this stays modest
         self._entries: list[dict] = []
+        # each entry's payload bytes as logged, in lockstep with
+        # _entries: entries_from bounds a batch by them
+        self._sizes: list[int] = []
         self.first_index = 1  # index of the first entry retained in log
         # term of the entry at first_index - 1 (the compaction/snapshot
         # horizon). Persisted so a leader can always send a REAL
@@ -121,6 +129,7 @@ class Wal:
                 if len(payload) < ln or zlib.crc32(payload) != crc:
                     break  # torn tail
                 self._entries.append(json.loads(payload))
+                self._sizes.append(ln)
                 good = f.tell()
         actual = os.path.getsize(self.path)
         if good < actual:
@@ -131,6 +140,7 @@ class Wal:
         # meta first; but be defensive)
         while self._entries and self._entries[0]["index"] < self.first_index:
             self._entries.pop(0)
+            self._sizes.pop(0)
         if self._entries:
             self.first_index = self._entries[0]["index"]
 
@@ -177,10 +187,21 @@ class Wal:
                 return self.horizon_term
         return None
 
-    def entries_from(self, index: int, max_n: int = 512) -> list[dict]:
+    def entries_from(self, index: int, max_n: int = 512,
+                     max_bytes: int | None = None) -> list[dict]:
+        """Up to max_n entries from `index`; with max_bytes, only as many
+        as fit in that many logged payload bytes (at least one)."""
         with self._lock:
             i = max(0, index - self.first_index)
-            return list(self._entries[i : i + max_n])
+            out = self._entries[i : i + max_n]
+            if max_bytes is not None:
+                total = 0
+                for j, size in enumerate(self._sizes[i : i + len(out)]):
+                    total += size
+                    if total > max_bytes and j > 0:
+                        out = out[:j]
+                        break
+            return list(out)
 
     # -- writes --------------------------------------------------------------
 
@@ -193,10 +214,12 @@ class Wal:
                 f"append gap: {entries[0]['index']} != {expect}"
             )
             buf = bytearray()
+            sizes = []
             for e in entries:
                 payload = json.dumps(e).encode()
                 buf += _HDR.pack(len(payload), zlib.crc32(payload))
                 buf += payload
+                sizes.append(len(payload))
             t0 = time.monotonic()
             self._fd.write(buf)
             self._fd.flush()
@@ -205,6 +228,7 @@ class Wal:
                 os.fsync(self._fd.fileno())
             t1 = time.monotonic()
             self._entries.extend(entries)
+            self._sizes.extend(sizes)
             obs = self.observer
             if obs is not None:
                 try:
@@ -227,6 +251,7 @@ class Wal:
                 return
             keep = max(0, from_index - self.first_index)
             self._entries = self._entries[:keep]
+            self._sizes = self._sizes[:keep]
             self._rewrite()
 
     def truncate_prefix(self, new_first: int) -> None:
@@ -241,6 +266,7 @@ class Wal:
             self.horizon_term = self.term_at(new_first - 1)
             drop = min(new_first - self.first_index, len(self._entries))
             self._entries = self._entries[drop:]
+            self._sizes = self._sizes[drop:]
             self.first_index = new_first
             self._rewrite()
 
@@ -253,6 +279,7 @@ class Wal:
         snapshot rather than index-matching)."""
         with self._lock:
             self._entries = []
+            self._sizes = []
             self.first_index = first_index
             self.horizon_term = horizon_term
             self._rewrite()

@@ -40,7 +40,11 @@ hook); a traced search captures its dispatches into
 gives the quality monitor its health numbers, `device_footprint_bytes`
 the device sampler its model. Names are the reference's.
 
-Not ported yet: `mesh_serving: on` (ROADMAP queue 1 item 10).
+The mesh: `apply_config` fans `mesh_shape` / `mesh_serving` into every
+vector field's index params; `mesh_info` gathers the fields' mesh
+placement, which a traced mesh search also reports (`trace["mesh"]`,
+with `mesh.*` phase spans), and a build job records the mesh that
+trained a coarse quantizer (`train_mesh`).
 """
 
 from __future__ import annotations
@@ -550,6 +554,11 @@ class Engine:
                         t0 = time.monotonic()
                         index.train(store.host_view())
                         mark("train", t0, time.monotonic())
+                        # the mesh that trained the coarse quantizer
+                        # (the PS tags its build.train span with it)
+                        tm = getattr(index, "last_train_mesh", None)
+                        if tm:
+                            job["train_mesh"] = tm
                     t0 = time.monotonic()
                     index.absorb(store.count)
                     mark("assign", t0, time.monotonic())
@@ -765,9 +774,20 @@ class Engine:
         return total + sum(m.numel() * m.element_size() for m in masks)
 
     def mesh_info(self) -> dict[str, Any] | None:
-        """Mesh placement summary over the fields: None, as the port
-        serves one device."""
-        return None
+        """Mesh placement summary over the vector fields; None when no
+        field serves through a mesh."""
+        fields = {}
+        for name, index in self.indexes.items():
+            try:
+                info = index.mesh_info()
+            except Exception:
+                info = None
+            if info is not None:
+                fields[name] = info
+        if not fields:
+            return None
+        return {"devices": max(f["devices"] for f in fields.values()),
+                "fields": fields}
 
     def tiering_info(self) -> dict[str, Any] | None:
         """Tiered-storage summary over the vector fields (each index's
@@ -813,8 +833,8 @@ class Engine:
         if "shape_buckets" in cfg:
             self.shape_buckets = bool(cfg["shape_buckets"])
         for key in ("mesh_shape", "mesh_serving"):
-            # written as the reference writes them; mesh_serving "on"
-            # raises at search time (ROADMAP queue 1 item 10)
+            # the serving mesh's shape ("DxQ", [data, query] or a device
+            # count) and the mesh switch, read per search
             if key in cfg:
                 for index in self.indexes.values():
                     index.params.params[key] = cfg[key]
@@ -1158,8 +1178,8 @@ class Engine:
             t_end = time.monotonic()
             trace["merge_ms"] = round((t_shape - t_merge) * 1e3, 3)
             trace["shape_ms"] = round((t_end - t_shape) * 1e3, 3)
-            phases += [("engine.merge", t_merge, t_shape),
-                       ("engine.shape", t_shape, t_end)]
+            phases.append(("engine.merge", t_merge, t_shape))
+            phases.append(("engine.shape", t_shape, t_end))
             trace["total_ms"] = round((t_end - t_start) * 1e3, 3)
             trace["doc_count"] = self.doc_count
         return results
@@ -1169,7 +1189,7 @@ class Engine:
         the measured dispatches (tags, host ms per tag) beside the perf
         model's prediction for the matched serving path, and the
         `_phase_spans` rows ([name, start_us, dur_us]; engine.*, kernel.*,
-        tier.*, stage.*)."""
+        mesh.*, tier.*, stage.*)."""
         trace = req.trace
         tags = capture.tags
         trace["dispatches"] = tags
@@ -1192,11 +1212,16 @@ class Engine:
                   for name, t0, t1 in phases]
         spans += [[f"kernel.{tag}", mono_us(t0), int((t1 - t0) * 1e6)]
                   for tag, t0, t1 in capture.events if t1 is not None]
-        for prefix, windows in (("tier", capture.tier_phases),
+        for prefix, windows in (("mesh", capture.mesh_phases),
+                                ("tier", capture.tier_phases),
                                 ("stage", capture.stage_phases)):
             spans += [[f"{prefix}.{name}", mono_us(t0),
                        int((t1 - t0) * 1e6)] for name, t0, t1 in windows]
         trace["_phase_spans"] = spans
+        if capture.mesh_phases or any(t.startswith("sharded") for t in tags):
+            info = self.mesh_info()
+            if info is not None:
+                trace["mesh"] = info
         if capture.tier_phases:
             tinfo = self.tiering_info()
             if tinfo is not None:

@@ -12,6 +12,9 @@ vearch_tpu/engine/raw_vector.py.
   (bf16-rounded when `store_dtype` is bfloat16), so it is bit-identical
   to the reference's column.
 
+`device_buffer_sharded(mesh)` places the same rows row-sharded over a
+mesh (parallel/mesh.py), for the mesh's rerank.
+
 Persistence streams the host rows, never device state: they are f32 for
 every `store_dtype` (a bf16 store rounds only on upload), so a dump is a
 plain f32 .npy that loads with `allow_pickle=False`, and a load drops
@@ -29,6 +32,7 @@ import torch
 from vearch_tpu_torch.device import resolve_device
 from vearch_tpu_torch.ops import perf_model
 from vearch_tpu_torch.ops.distance import host_sqnorms
+from vearch_tpu_torch.parallel.mesh import ShardedRowCache
 
 STORE_DTYPES = {
     "float32": torch.float32,
@@ -122,6 +126,33 @@ class RawVectorStore:
                 self._device_rows = n
             return self._device, self._device_sqnorm, n
 
+    _sh_cache = None
+
+    def device_buffer_sharded(self, mesh) -> tuple:
+        """The raw buffer row-sharded over the mesh's "data" axis (the
+        mesh's rerank base): (MeshArray rows in store_dtype, MeshArray
+        |v|^2 column, n_rows). Growth within the placed capacity
+        tail-appends only the new rows; the |v|^2 column is derived on
+        the host from the rows as placed, the single-device column."""
+        if self._sh_cache is None:
+            self._sh_cache = ShardedRowCache(align=128, sqnorm_of=0)
+
+        def build(cap):
+            host = np.zeros((cap, self.dimension), dtype=np.float32)
+            host[: self._n] = self._host[: self._n]
+            return (torch.from_numpy(host).to(self.store_dtype),)
+
+        def append(lo, hi):
+            win = np.zeros((hi - lo, self.dimension), dtype=np.float32)
+            m = min(hi, self._host.shape[0]) - lo
+            if m > 0:
+                win[:m] = self._host[lo: lo + m]
+            return (torch.from_numpy(win).to(self.store_dtype),)
+
+        with self._flush_lock:
+            (base,), _ = self._sh_cache.get(mesh, self._n, build, append)
+            return base, self._sh_cache.sqnorm, self._n
+
     # -- persistence ---------------------------------------------------------
 
     def dump(self, path: str) -> None:
@@ -132,6 +163,8 @@ class RawVectorStore:
             self._device = None
             self._device_sqnorm = None
             self._device_rows = 0
+            if self._sh_cache is not None:
+                self._sh_cache.invalidate()
 
     def load(self, path: str) -> None:
         if os.path.exists(path):

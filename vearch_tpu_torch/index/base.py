@@ -91,13 +91,14 @@ class VectorIndex(abc.ABC):
         return self._raw_store_device_bytes()
 
     def device_footprint_per_device_bytes(self) -> int:
-        """Modelled resident bytes on each device: the port serves one
-        device, so all of it."""
+        """Modelled resident bytes on each device: all of it for a
+        single-device index; mesh-serving indexes override with the
+        sharded / replicated split (perf_model.per_device_bytes)."""
         return self.device_footprint_bytes()
 
     def mesh_info(self) -> dict[str, Any] | None:
-        """Mesh placement summary; None, as the port serves one device
-        (mesh serving is ROADMAP queue 1 item 10)."""
+        """Mesh placement summary, None when this index does not serve
+        through a mesh."""
         return None
 
     def cell_populations(self) -> list[int] | None:

@@ -20,8 +20,10 @@ and 1 run on the device (`binary_refine_candidates`, tag
 binary_refine_scan) and the exact rerank gathers the raw rows on the
 host (`_store_paths.rerank_against_store`), counted as the "disk" path
 of `note_refine_search`. `mirror_dtype: "int4"` keeps the stage-1 tier
-as packed int4 rows. Not ported yet: the mesh branch (mesh_serving "on"
-raises, ROADMAP queue 1 item 10).
+as packed int4 rows. Under the mesh (`mesh_serving`, index/ivf.py) the
+planes, the mirror and the raw base shard row-wise in lockstep and the
+chain runs as `parallel/sharded.sharded_binary_refine` (tag
+sharded_binary_refine_rerank, the "mesh" path of `note_refine_search`).
 """
 
 from __future__ import annotations
@@ -43,6 +45,8 @@ from vearch_tpu_torch.ops import binary_scan as binary_ops
 from vearch_tpu_torch.ops import ivf as ivf_ops
 from vearch_tpu_torch.ops import perf_model
 from vearch_tpu_torch.ops.distance import to_device_mask
+from vearch_tpu_torch.parallel import mesh as mesh_lib
+from vearch_tpu_torch.parallel.sharded import sharded_binary_refine
 
 
 @register_index("BINARYIVF")
@@ -146,8 +150,6 @@ class IVFRaBitQIndex(IVFPQIndex):
                                   dict(params or {}, scan_mode="full"))
         assert self.trained, "IVFRABITQ search before training"
         p = params or {}
-        self._check_mesh(p.get("mesh_serving",
-                               self.params.get("mesh_serving", "auto")))
         q = self._maybe_normalize(np.asarray(queries, np.float32))
         metric = (
             MetricType.INNER_PRODUCT
@@ -156,6 +158,9 @@ class IVFRaBitQIndex(IVFPQIndex):
         )
         r0, r1 = self._stage_depths(k, params)
         topk_mode = p.get("topk_mode", self.params.get("topk_mode", "auto"))
+        if self._mesh_enabled(p) and not is_disk_store(self.store):
+            return self._search_binary_mesh(q, k, valid_mask, p, metric,
+                                            r0, r1, topk_mode)
         # host windows of the chain (stage.* spans of a traced search)
         t_flush0 = time.monotonic()
         planes, p_scale, p_vsq = self._bits.flush()
@@ -199,6 +204,45 @@ class IVFRaBitQIndex(IVFPQIndex):
         binary_ops.note_refine_search(
             "fused", self.indexed_count, r0, r1, k, q.shape[0])
         return self._pad_to_k(scores, ids, k)
+
+    def _search_binary_mesh(
+        self, q: np.ndarray, k: int, valid_mask, params, metric,
+        r0: int, r1: int, topk_mode: str,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """The chain over the mesh: planes, mirror and raw base sharded
+        in lockstep (the same 512 alignment for planes and mirror), stages
+        0-1 shard-local, one gather, the owner rerank."""
+        t_place0 = time.monotonic()
+        mesh = self._serving_mesh(params)
+        planes, p_scale, p_vsq = self._bits.flush_sharded(mesh)
+        a8, m_scale, m_vsq = self._mirror.flush_sharded(mesh)
+        n = self.indexed_count
+        cap = self._bits._sh_cache.capacity(mesh, n)
+        valid_sh = self._mesh_valid_cache.get(mesh, valid_mask, n, cap)
+        base, base_sqn, _ = self.store.device_buffer_sharded(mesh)
+        qd, b = mesh_lib.shard_queries(mesh, np.asarray(q, np.float32))
+        ivf_ops.note_mesh_phase("place", t_place0, time.monotonic())
+        t0 = time.monotonic()
+        ivf_ops.note_dispatch("sharded_binary_refine_rerank")
+        scores, ids = sharded_binary_refine(
+            mesh, planes, p_scale, p_vsq, a8, m_scale, m_vsq, valid_sh,
+            base, base_sqn, qd, r0, r1, min(k, r1),
+            scan_metric=metric, rerank_metric=self.metric,
+            topk_mode=topk_mode, storage=self.mirror_storage,
+        )
+        scores, ids = _host(scores)[:b], _host(ids)[:b]
+        ivf_ops.note_stage_phase("refine", t0, time.monotonic())
+        binary_ops.note_refine_search("mesh", n, r0, r1, k, b)
+        return self._pad_to_k(scores, ids, k)
+
+    def device_footprint_per_device_bytes(self) -> int:
+        if not self._mesh_enabled(None):
+            return self.device_footprint_bytes()
+        # the planes shard row-wise with the mirror: their payload joins
+        # the sharded term of IVFPQ's per-device model
+        base = super().device_footprint_per_device_bytes()
+        n_shards = int(self._serving_mesh(None).shape["data"])
+        return base + -(-self._bits.device_bytes() // max(n_shards, 1))
 
     def _publish(self) -> None:
         # no probe regime for 1-bit codes: both mirrors fill at absorb

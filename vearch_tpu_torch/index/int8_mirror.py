@@ -10,6 +10,7 @@ each 512-row block to its maximum. `storage` picks the row payload:
 int4, two values a byte, d/2 bytes a row: half the resident bytes of
 int8's payload) or "bits" (packed sign planes, ceil(d/8) bytes a row:
 IVFRABITQ's stage-0 tier, ops/binary_scan.pack_sign_rows).
+`flush_sharded(mesh)` places the same rows row-sharded over a mesh.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 from vearch_tpu_torch.device import resolve_device
 from vearch_tpu_torch.ops import perf_model
 from vearch_tpu_torch.ops.binary_scan import pack_sign_rows
+from vearch_tpu_torch.parallel.mesh import ShardedRowCache
 
 
 def quantize_rows(rows: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -124,11 +126,42 @@ class Int8Mirror:
             # (re-absorb after load_state): re-upload from `start`
             if start < self._d_rows:
                 self._d_rows = start
+            if self._sh_cache is not None:
+                self._sh_cache.lower_rows(start)
 
     def append(self, rows: np.ndarray, start: int | None = None) -> None:
         quant = {"int8": quantize_rows, "int4": quantize_rows_int4,
                  "bits": pack_sign_rows}[self.storage]
         self.append_quantized(*quant(rows), start=start)
+
+    _sh_cache = None
+
+    def flush_sharded(self, mesh) -> tuple:
+        """The mirror row-sharded over the mesh's "data" axis (MeshArrays
+        of the row payload, scale and |v|^2), each shard 512-aligned for
+        the block-max scan; growth within the placed capacity
+        tail-appends only the new rows (parallel/mesh.ShardedRowCache)."""
+        if self._sh_cache is None:
+            self._sh_cache = ShardedRowCache(align=512)
+
+        def build(cap):
+            h8 = np.zeros((cap, self._row_width), dtype=self._row_dtype)
+            hs = np.zeros(cap, dtype=np.float32)
+            hv = np.zeros(cap, dtype=np.float32)
+            n = self._n
+            h8[:n] = self._h8[:n]
+            hs[:n] = self._h_scale[:n]
+            hv[:n] = self._h_vsq[:n]
+            return h8, hs, hv
+
+        def append(lo, hi):
+            return (np.ascontiguousarray(self._h8[lo:hi]),
+                    np.ascontiguousarray(self._h_scale[lo:hi]),
+                    np.ascontiguousarray(self._h_vsq[lo:hi]))
+
+        with self._flush_lock:
+            arrays, _ = self._sh_cache.get(mesh, self._n, build, append)
+        return arrays
 
     def flush(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Device views [cap, width] row payload / [cap] f32 / [cap] f32;

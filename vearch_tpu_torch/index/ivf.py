@@ -43,12 +43,24 @@ centroids, the published bucket tensors and, for IVFPQ, the codebooks
 and the mirror, as in the reference; the port also keeps
 `_bucket_lens` ([nlist] int32) beside the probe buckets and counts it.
 
-Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: mesh serving and mesh training.
+The mesh (parallel/): `mesh_serving: auto|on|off` (per request or index
+param; "data_parallel" is its boolean alias) serves IVFPQ's full scan and
+probe regime through one partition row-sharded over the `mesh_shape`
+mesh (`_search_mesh`: the mirror, the raw base and the row -> cell
+assignment shard in lockstep; the probe regime gates the docid-ordered
+mirror to the probed cells instead of using the buckets). "auto" turns
+the mesh on when more than one PHYSICAL device of the index's type is
+visible, so virtual shards (`parallel/mesh.VIRTUAL_DEVICE_COUNT`) never
+move a search onto the mesh by themselves. `scan_kernel: "pallas"` and
+disk stores keep the single-device path, as in the reference.
+`mesh_train: true` trains the coarse quantizer over the serving mesh
+(`parallel/sharded.train_kmeans_sharded`) when it has more than one
+device, virtual ones included; `last_train_mesh` names it.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any
 
 import numpy as np
@@ -66,10 +78,18 @@ from vearch_tpu_torch.index.registry import register_index
 from vearch_tpu_torch.native.hnsw_graph import HnswGraph
 from vearch_tpu_torch.ops import ivf as ivf_ops
 from vearch_tpu_torch.ops import kmeans as km
+from vearch_tpu_torch.ops import perf_model
 from vearch_tpu_torch.ops import pq as pq_ops
 from vearch_tpu_torch.ops.blockmax_scan import int8_blockmax_scan
 from vearch_tpu_torch.ops.distance import sqnorms, to_device_mask
 from vearch_tpu_torch.ops.probe_dots import ivfpq_probe_search
+from vearch_tpu_torch.parallel import mesh as mesh_lib
+from vearch_tpu_torch.parallel.sharded import (
+    sharded_exact_rerank,
+    sharded_int8_search,
+    sharded_ivf_search,
+    train_kmeans_sharded,
+)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -90,9 +110,6 @@ class _IVFBase(VectorIndex):
         # quantizer_type_), which keeps probe selection on the host
         self.quantizer_type = str(params.get("quantizer_type", "flat")).lower()
         self._coarse_graph = None
-        if bool(params.get("mesh_train", False)):
-            raise NotImplementedError(
-                "mesh_train is not ported yet (ROADMAP queue 1 item 10)")
         self.centroids: torch.Tensor | None = None  # [nlist, d] f32
         self._members: list[list[int]] = []  # per-cluster docid lists
         self._dirty = True
@@ -133,11 +150,40 @@ class _IVFBase(VectorIndex):
             a = a.copy()
         return torch.from_numpy(a).to(self.device)
 
+    #: "DxQ" tag of the mesh that trained the coarse quantizer, None for
+    #: the single-device trainer (build jobs record it)
+    last_train_mesh: str | None = None
+
+    def _train_mesh(self):
+        """Mesh for coarse-quantizer training, or None for the single-
+        device path. Opt-in (`mesh_train: true`): the sharded trainer
+        samples its init differently, so it changes the centroids."""
+        if not bool(self.params.get("mesh_train", False)):
+            return None
+        mesh = self._serving_mesh(None)
+        return mesh if mesh.size > 1 else None
+
+    def _serving_mesh(self, params: dict | None):
+        """The mesh this index places on and serves from: the
+        `mesh_shape` knob (a request's wins), over the visible devices
+        of the index's type."""
+        shape = (params or {}).get("mesh_shape",
+                                   self.params.get("mesh_shape"))
+        return mesh_lib.mesh_from_shape(shape, self.device.type)
+
     def train(self, sample: np.ndarray) -> None:
         x = self._maybe_normalize(self._sample(np.asarray(sample, np.float32)))
-        self.centroids = km.train_kmeans(
-            self._to_device(x), k=self.nlist, iters=self.train_iters
-        )
+        mesh = self._train_mesh()
+        if mesh is not None:
+            self.centroids = train_kmeans_sharded(
+                mesh, x, k=self.nlist, iters=self.train_iters
+            ).to(self.device)
+            self.last_train_mesh = mesh_lib.mesh_tag(mesh)
+        else:
+            self.centroids = km.train_kmeans(
+                self._to_device(x), k=self.nlist, iters=self.train_iters
+            )
+            self.last_train_mesh = None
         self._members = [[] for _ in range(self.nlist)]
         self._build_coarse_graph()
         self._train_extra(x)
@@ -393,8 +439,11 @@ class IVFPQIndex(_IVFBase):
         self._opq_R: np.ndarray | None = None  # [d, d] orthonormal, host
         self.scan_mode = str(params.get("scan_mode", "auto"))
         self.full_scan_limit = int(params.get("full_scan_limit", 16_000_000))
-        self._check_mesh(params.get("mesh_serving",
-                                    params.get("data_parallel", "auto")))
+        self.mesh_serving = self._norm_mesh_serving(
+            params.get("mesh_serving", params.get("data_parallel", "auto")))
+        # the mesh probe gate's row -> cell table, sharded like the mirror
+        self._assign_cache = None
+        self._mesh_valid_cache = mesh_lib.ShardedMaskCache()
         self.codebooks: torch.Tensor | None = None  # [m, ksub, dsub]
         self._codes: np.ndarray | None = None  # [n_indexed, m] host codes
         # row -> cell, docid-ordered (reconstruction_error reads it)
@@ -409,13 +458,30 @@ class IVFPQIndex(_IVFBase):
                                   device=self.device)
 
     @staticmethod
-    def _check_mesh(value) -> None:
-        """The port serves one device: `mesh_serving` "auto"/"off" mean
-        the single-device path (as "auto" does on one chip in the
-        reference); "on" is refused."""
-        if value in (True, "on", "true", "1"):
-            raise NotImplementedError(
-                "mesh_serving is not ported yet (ROADMAP queue 1 item 10)")
+    def _norm_mesh_serving(value) -> str:
+        ms = {True: "on", False: "off"}.get(value, str(value).lower())
+        if ms in ("true", "1"):
+            ms = "on"
+        elif ms in ("false", "0", "none"):
+            ms = "off"
+        if ms not in ("auto", "on", "off"):
+            raise ValueError(f"mesh_serving must be auto|on|off, got {value!r}")
+        return ms
+
+    def _mesh_enabled(self, params: dict | None) -> bool:
+        """Whether this search serves through the mesh (read per request,
+        so apply_config and request overrides act without a rebuild).
+        "auto" counts physical devices of the index's type."""
+        ms = self._norm_mesh_serving((params or {}).get(
+            "mesh_serving", self.params.get(
+                "mesh_serving", self.params.get("data_parallel", "auto"))))
+        if ms == "auto":
+            return mesh_lib.physical_device_count(self.device.type) > 1
+        return ms == "on"
+
+    @property
+    def data_parallel(self) -> bool:
+        return self._mesh_enabled(None)
 
     def _device_state_arrays(self) -> tuple:
         return super()._device_state_arrays() + (
@@ -541,17 +607,34 @@ class IVFPQIndex(_IVFBase):
             if self.metric is MetricType.COSINE
             else self.metric
         )
-        self._check_mesh(p.get("mesh_serving",
-                               self.params.get("mesh_serving", "auto")))
         scan_kernel = p.get("scan_kernel",
                             self.params.get("scan_kernel", "xla"))
         if scan_kernel not in ("xla", "pallas"):
             raise ValueError(f"scan_kernel must be xla|pallas, got "
                              f"{scan_kernel!r}")
         mode = p.get("scan_mode", self.scan_mode)
+        # the mesh needs the raw buffer sharded on the devices, which a
+        # disk store cannot give; "pallas" keeps the single-device path
+        # (the reference's hardware A/B flag), so the dispatch ledgers
+        # stay equal
+        mesh_route = (self._mesh_enabled(p) and scan_kernel != "pallas"
+                      and not is_disk_store(self.store))
         if mode == "auto":
-            mode = ("full" if self.indexed_count <= self.full_scan_limit
-                    else "probe")
+            # the full-scan budget is per device: it scales with the
+            # serving mesh's DATA axis
+            limit = self.full_scan_limit
+            if mesh_route:
+                limit *= max(int(self._serving_mesh(p).shape["data"]), 1)
+            mode = "full" if self.indexed_count <= limit else "probe"
+        if mesh_route and mode == "full":
+            return self._search_mesh(q, k, valid_mask, p, metric)
+        if (mesh_route and mode == "probe" and self._exact_rerank_enabled(p)
+                and p.get("fused_rerank",
+                          self.params.get("fused_rerank", True))):
+            # the probe regime on the mesh keeps the row-sharded layout
+            # and gates the fused program to the probed cells
+            return self._search_mesh(q, k, valid_mask, p, metric,
+                                     probe_nprobe=max(self._nprobe(p), 1))
         qt = self._to_device(q)
         rerank = self._exact_rerank_enabled(p)
         if mode != "full":
@@ -599,6 +682,123 @@ class IVFPQIndex(_IVFBase):
             return self._pad_to_k(_host(cand_s[:, :k]), _host(cand_i[:, :k]),
                                   k)
         return self._rerank(q, cand_i, k)
+
+    # -- the mesh ------------------------------------------------------------
+
+    def _mesh_nprobe(self, params: dict | None) -> int:
+        """Coarse-probe gate depth of the mesh program (0: the ungated
+        full scan)."""
+        p = params or {}
+        return min(int(p.get("mesh_nprobe",
+                             self.params.get("mesh_nprobe", 0))), self.nlist)
+
+    def _assign_sharded(self, mesh, n: int):
+        """Row -> cell assignment sharded in lockstep with the mirror (the
+        same 512 alignment, so local row offsets agree per shard)."""
+        if self._assign_cache is None:
+            self._assign_cache = mesh_lib.ShardedRowCache(align=512)
+
+        def build(cap):
+            host = np.zeros(cap, dtype=np.int32)
+            host[:n] = self._assign_host[:n]
+            return (host,)
+
+        def append(lo, hi):
+            return (np.ascontiguousarray(self._assign_host[lo:hi]),)
+
+        (assign,), _ = self._assign_cache.get(mesh, n, build, append)
+        return assign
+
+    def _search_mesh(self, q: np.ndarray, k: int, valid_mask, p: dict,
+                     metric: MetricType, probe_nprobe: int = 0
+                     ) -> tuple[np.ndarray, np.ndarray]:
+        """The mesh path: the mirror, the raw base and the row -> cell
+        assignment row-sharded over the mesh's "data" axis, the queries
+        over its "query" axis, then parallel/sharded.py's programs.
+        `probe_nprobe > 0` is the probe regime routed here by search():
+        the same fused program gated to the probed cells, under its own
+        dispatch tag."""
+        t_place0 = time.monotonic()
+        mesh = self._serving_mesh(p)
+        a8, scale, vsq = self._mirror.flush_sharded(mesh)
+        n = self.indexed_count
+        cap = self._mirror._sh_cache.capacity(mesh, n)
+        valid_sh = self._mesh_valid_cache.get(mesh, valid_mask, n, cap)
+        nprobe = probe_nprobe or self._mesh_nprobe(p)
+        cents = assign_sh = None
+        if nprobe > 0:
+            cents = mesh_lib.replicate(mesh, self.centroids)
+            assign_sh = self._assign_sharded(mesh, n)
+        qd, b = mesh_lib.shard_queries(mesh, np.asarray(q, np.float32))
+        r = min(self._rerank_depth(k, p), max(n, 1))
+        topk_mode = p.get("topk_mode", self.params.get("topk_mode", "auto"))
+        fused = p.get("fused_rerank", self.params.get("fused_rerank", True))
+        rerank = self._exact_rerank_enabled(p)
+        if fused and rerank:
+            base, base_sqn, _ = self.store.device_buffer_sharded(mesh)
+            ivf_ops.note_mesh_phase("place", t_place0, time.monotonic())
+            ivf_ops.note_dispatch(
+                "sharded_probe_scan_rerank" if probe_nprobe > 0
+                else "sharded_fused_scan_rerank")
+            scores, ids = sharded_ivf_search(
+                mesh, cents, assign_sh, a8, scale, vsq, valid_sh,
+                base, base_sqn, qd, max(r, k), min(k, max(r, k)),
+                scan_metric=metric, rerank_metric=self.metric,
+                topk_mode=topk_mode, storage=self.mirror_storage,
+                nprobe=nprobe,
+            )
+            return self._pad_to_k(_host(scores)[:b], _host(ids)[:b], k)
+        ivf_ops.note_mesh_phase("place", t_place0, time.monotonic())
+        ivf_ops.note_dispatch("sharded_scan")
+        cand_s, cand_i = sharded_int8_search(
+            mesh, a8, scale, vsq, valid_sh, qd, max(r, k), metric,
+            topk_mode, storage=self.mirror_storage)
+        if not rerank:
+            return self._pad_to_k(_host(cand_s)[:b, :k],
+                                  _host(cand_i)[:b, :k], k)
+        base, base_sqn, _ = self.store.device_buffer_sharded(mesh)
+        ivf_ops.note_dispatch("sharded_rerank")
+        scores, ids = sharded_exact_rerank(
+            mesh, qd, cand_i, base, base_sqn, min(k, int(cand_i.shape[1])),
+            self.metric)
+        return self._pad_to_k(_host(scores)[:b], _host(ids)[:b], k)
+
+    def mesh_info(self) -> dict[str, Any] | None:
+        """Mesh placement summary (/ps/stats, traces); None when mesh
+        serving is off."""
+        if not self._mesh_enabled(None):
+            return None
+        mesh = self._serving_mesh(None)
+        info: dict[str, Any] = {
+            "devices": int(mesh.size),
+            "data_shards": int(mesh.shape["data"]),
+            "query_shards": int(mesh.shape["query"]),
+            "per_device_bytes": self.device_footprint_per_device_bytes(),
+        }
+        if self._mirror._sh_cache is not None:
+            info["mirror_placement"] = dict(self._mirror._sh_cache.stats)
+        rs = getattr(self.store, "_sh_cache", None)
+        if rs is not None:
+            info["raw_placement"] = dict(rs.stats)
+        return info
+
+    def device_footprint_per_device_bytes(self) -> int:
+        """Resident bytes on each device of the mesh: row-sharded state
+        (mirror, raw base, assignment) divides by the shard count, the
+        rest rides whole on every device (perf_model.per_device_bytes)."""
+        if not self._mesh_enabled(None):
+            return self.device_footprint_bytes()
+        mesh = self._serving_mesh(None)
+        sharded = (self._mirror.device_bytes()
+                   + perf_model.raw_store_footprint_bytes(
+                       self.store.capacity, self.store.dimension,
+                       self.store.store_dtype.itemsize)
+                   + self._assign_host.shape[0] * 4)
+        replicated = sum(a.numel() * a.element_size()
+                         for a in self._device_state_arrays()
+                         if a is not None)
+        return perf_model.per_device_bytes(sharded, replicated,
+                                           int(mesh.shape["data"]))
 
     def _probe_candidates(self, q: np.ndarray, qt: torch.Tensor, k: int,
                           valid_mask, p: dict, metric: MetricType

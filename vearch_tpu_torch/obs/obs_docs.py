@@ -1,0 +1,114 @@
+"""Observability-drift helpers for the doctor's `obs_docs` check: the
+port's copies of vearch_tpu/tools/lint/rules_obs.py's name patterns,
+`names_from_text`, `source_names`, `doc_names` and `drift_failures`,
+which need no lint framework (the lint suite itself is not ported).
+docs/OBSERVABILITY.md must document exactly the metric, span and span
+tag names the source registers, both directions.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+
+# metric registration call sites — counter/gauge/histogram and the
+# callback variants — with the name literal possibly on the next line.
+# Anchored on the quote right after the paren so the Registry method
+# definitions themselves don't match.
+_METRIC_RE = re.compile(
+    r"\.(?:counter|gauge|histogram|callback_gauge|callback_counter)"
+    r"\(\s*[\"']([A-Za-z_][\w]*)[\"']",
+    re.S,
+)
+
+# post-creation span tags — set_tag with a literal key — mark
+# per-request facts the operator greps for mid-incident; every literal
+# key must appear backticked in the doc. One-directional: single-word
+# doc backticks are too generic to demand a registration behind each.
+_TAG_RE = re.compile(r"\.set_tag\(\s*[\"']([a-z_]+)[\"']")
+
+# span factories — tracer span/record calls with a (possibly
+# f-string) name literal — plus the engine's phase rows appended to
+# `phases`/`spans` lists, which the PS replays as retroactive spans.
+_SPAN_RES = [
+    re.compile(r"\.span\(\s*f?[\"']([a-z_.{}]+)[\"']", re.S),
+    re.compile(r"\.record\(\s*f?[\"']([a-z_.{}]+)[\"']", re.S),
+    re.compile(r"phases\.append\(\(\s*f?[\"']([a-z_.{}]+)[\"']", re.S),
+    re.compile(r"spans\.append\(\[\s*f?[\"']([a-z_.{}]+)[\"']", re.S),
+    re.compile(r"spans\.extend\(\s*\[\s*f?[\"']([a-z_.{}]+)[\"']", re.S),
+]
+
+
+def _normalize(name: str) -> str:
+    return re.sub(r"[{<][^}>]*[}>]", "*", name)
+
+
+def names_from_text(text: str) -> tuple[set[str], set[str], set[str]]:
+    """(metrics, spans, tags) registered/emitted by one source file."""
+    metrics = set(_METRIC_RE.findall(text))
+    tags = set(_TAG_RE.findall(text))
+    spans: set[str] = set()
+    for rx in _SPAN_RES:
+        spans.update(_normalize(n) for n in rx.findall(text))
+    return metrics, spans, tags
+
+
+def source_names(src_dir: str) -> tuple[set[str], set[str], set[str]]:
+    """Walk a source tree for every metric/span/tag name."""
+    metrics: set[str] = set()
+    spans: set[str] = set()
+    tags: set[str] = set()
+    for root, _dirs, files in os.walk(src_dir):
+        for fn in files:
+            if not fn.endswith(".py"):
+                continue
+            with open(os.path.join(root, fn)) as f:
+                m, s, t = names_from_text(f.read())
+            metrics |= m
+            spans |= s
+            tags |= t
+    return metrics, spans, tags
+
+
+def doc_names(doc_path: str) -> tuple[set[str], set[str]]:
+    """Backticked tokens in the doc, split into metric-shaped
+    (prometheus identifier) and span-shaped (dotted) names. Prose
+    backticks (`trace: true`, file paths, field names) match neither
+    shape and are ignored."""
+    with open(doc_path) as f:
+        text = f.read()
+    metrics: set[str] = set()
+    spans: set[str] = set()
+    for tok in re.findall(r"`([^`\n]+)`", text):
+        if re.fullmatch(r"(?:vearch|tracing)_[a-z0-9_]+", tok):
+            metrics.add(tok)
+        elif re.fullmatch(r"[a-z_]+(?:\.[a-z_{}<>]+)+", tok):
+            spans.add(_normalize(tok))
+    return metrics, spans
+
+
+def drift_failures(
+    src_metrics: set[str], src_spans: set[str], src_tags: set[str],
+    doc_path: str,
+) -> list[str]:
+    doc_metrics, doc_spans = doc_names(doc_path)
+    with open(doc_path) as f:
+        doc_words = set(re.findall(r"`([a-z_]+)`", f.read()))
+    # keep only doc tokens whose first segment matches an emitted span
+    # family — drops dotted prose like `dispatches.tags` (a JSON field,
+    # not a span) without a hand-maintained prefix list
+    span_roots = {s.split(".", 1)[0] for s in src_spans}
+    doc_spans = {s for s in doc_spans if s.split(".", 1)[0] in span_roots}
+
+    failures = []
+    for name in sorted(src_metrics - doc_metrics):
+        failures.append(f"metric registered but undocumented: {name}")
+    for name in sorted(doc_metrics - src_metrics):
+        failures.append(f"metric documented but not registered: {name}")
+    for name in sorted(src_spans - doc_spans):
+        failures.append(f"span emitted but undocumented: {name}")
+    for name in sorted(doc_spans - src_spans):
+        failures.append(f"span documented but never emitted: {name}")
+    for name in sorted(src_tags - doc_words):
+        failures.append(f"span tag set but undocumented: {name}")
+    return failures

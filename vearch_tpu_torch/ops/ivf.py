@@ -110,14 +110,14 @@ _capture_tls = threading.local()
 
 
 class DispatchCapture:
-    __slots__ = ("events", "tier_phases", "stage_phases")
+    __slots__ = ("events", "mesh_phases", "tier_phases", "stage_phases")
 
     def __init__(self) -> None:
         # [tag, start_monotonic_s, end_monotonic_s | None]
         self.events: list[list] = []
-        # (name, start, end) host windows of the tiered storage path and
-        # of the three-stage chain (the reference's mesh windows have no
-        # path on one device)
+        # (name, start, end) host windows of the mesh path (shard
+        # placement), the tiered storage path and the three-stage chain
+        self.mesh_phases: list[tuple[str, float, float]] = []
         self.tier_phases: list[tuple[str, float, float]] = []
         self.stage_phases: list[tuple[str, float, float]] = []
 
@@ -167,6 +167,14 @@ def note_dispatch(tag: str) -> None:
     cap = getattr(_capture_tls, "capture", None)
     if cap is not None:
         cap.note(tag)
+
+
+def note_mesh_phase(name: str, t0: float, t1: float) -> None:
+    """Record a host window of the mesh serving path (shard placement,
+    mask upload) on the calling thread's capture (a no-op without one)."""
+    cap = getattr(_capture_tls, "capture", None)
+    if cap is not None:
+        cap.mesh_phases.append((name, t0, t1))
 
 
 def note_stage_phase(name: str, t0: float, t1: float) -> None:
@@ -517,22 +525,35 @@ def exact_rerank(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact re-scoring of candidate docids against the raw device
     buffer: one row gather + a batched f32 product."""
-    safe = torch.clamp(cand_ids, min=0).long()
-    vecs = base[safe].float()  # [B, r, d]
-    vsq = base_sqnorm[safe]    # [B, r]
-    dots = torch.bmm(vecs, queries.float()[:, :, None])[..., 0]
-    if metric is MetricType.L2:
-        scores = -(sqnorms(queries)[:, None] - 2.0 * dots + vsq)
-    elif metric is MetricType.COSINE:
-        qn = torch.sqrt(torch.clamp(sqnorms(queries), min=1e-30))[:, None]
-        vn = torch.sqrt(torch.clamp(vsq, min=1e-30))
-        scores = dots / (qn * vn)
-    else:
-        scores = dots
+    scores = rerank_scores(queries, torch.clamp(cand_ids, min=0), base,
+                           base_sqnorm, metric)
     scores = torch.where(cand_ids >= 0, scores,
                          torch.full_like(scores, NEG_INF))
     top_s, pos = stable_topk(scores, min(k, scores.shape[1]))
     return top_s, torch.gather(cand_ids, 1, pos)
+
+
+def rerank_scores(
+    queries: torch.Tensor,      # [B, d] (store dtype)
+    rows: torch.Tensor,         # [B, r] row numbers into base, all >= 0
+    base: torch.Tensor,         # [capacity, d] store dtype
+    base_sqnorm: torch.Tensor,  # [capacity] f32
+    metric: MetricType,
+) -> torch.Tensor:
+    """[B, r] exact scores of the given base rows: the gather and the
+    batched f32 product of `exact_rerank`, which the mesh's rerank
+    (parallel/sharded.py) shares."""
+    safe = rows.long()
+    vecs = base[safe].float()  # [B, r, d]
+    vsq = base_sqnorm[safe]    # [B, r]
+    dots = torch.bmm(vecs, queries.float()[:, :, None])[..., 0]
+    if metric is MetricType.L2:
+        return -(sqnorms(queries)[:, None] - 2.0 * dots + vsq)
+    if metric is MetricType.COSINE:
+        qn = torch.sqrt(torch.clamp(sqnorms(queries), min=1e-30))[:, None]
+        vn = torch.sqrt(torch.clamp(vsq, min=1e-30))
+        return dots / (qn * vn)
+    return dots
 
 
 @perf_model.register_op("ivf.exact_rerank_gathered")

@@ -9,6 +9,9 @@ port of vearch_tpu/ops/kmeans.py.
   same rows.
 - Centroid updates are full f32 (`index_add_` of the rows per cluster).
 - Empty clusters reseed from a fixed random sample of the data.
+- `kmeans_partials` / `centroids_from_partials` split one Lloyd round
+  into per-shard statistics and the update, for the mesh's trainer
+  (parallel/sharded.py), as the reference splits them.
 - Randomness comes from a `torch.Generator` seeded with `seed`. It cannot
   reproduce JAX's PRNG, so training is held to objective and recall, not
   to bits.
@@ -75,14 +78,35 @@ def train_kmeans(x: torch.Tensor, k: int, iters: int = 10, seed: int = 0,
     else:
         pick = torch.randint(0, n, (k,), generator=gen, device=x.device)
     reseed = x[pick]
+    valid = torch.ones(n, dtype=torch.bool, device=x.device)
     for _ in range(iters):
-        sums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
-        counts = torch.zeros(k, dtype=torch.float32, device=x.device)
-        for lo in range(0, n, chunk):
-            xc = x[lo:lo + chunk]
-            a = assign_clusters(xc, centroids, chunk)
-            sums.index_add_(0, a, xc)
-            counts += torch.bincount(a, minlength=k).float()
-        new = sums / torch.clamp(counts, min=1.0)[:, None]
-        centroids = torch.where((counts < 0.5)[:, None], reseed, new)
+        sums, counts = kmeans_partials(x, valid, centroids, chunk)
+        centroids = centroids_from_partials(sums, counts, reseed)
     return centroids
+
+
+def kmeans_partials(x: torch.Tensor, valid: torch.Tensor,
+                    centroids: torch.Tensor, chunk: int = 16384
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One assignment pass over [n, d] rows: (sums [k, d], counts [k])
+    of the rows `valid` keeps, by nearest centroid (bf16 assignment, f32
+    sums)."""
+    k, d = centroids.shape
+    x = x.float()
+    w = valid.float()
+    sums = torch.zeros((k, d), dtype=torch.float32, device=x.device)
+    counts = torch.zeros(k, dtype=torch.float32, device=x.device)
+    for lo in range(0, x.shape[0], chunk):
+        xc, wc = x[lo:lo + chunk], w[lo:lo + chunk]
+        a = assign_clusters(xc, centroids, chunk)
+        sums.index_add_(0, a, xc * wc[:, None])
+        counts.index_add_(0, a, wc)
+    return sums, counts
+
+
+def centroids_from_partials(sums: torch.Tensor, counts: torch.Tensor,
+                            reseed: torch.Tensor) -> torch.Tensor:
+    """New centroids from summed partial statistics; an empty cluster
+    takes its reseed row."""
+    new = sums / torch.clamp(counts, min=1.0)[:, None]
+    return torch.where((counts < 0.5)[:, None], reseed, new).to(reseed.dtype)
