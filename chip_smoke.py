@@ -190,10 +190,14 @@ Phases:
    moves the re-placed replicas of the cluster's space too (counts held
    on every replica of both spaces; the moved replicas, which arrive
    unindexed as the reference's do, are built; recall held on both
-   spaces and both kernels launching again), and the cluster doctor runs
-   (its exit code and checks printed; any violation outside
-   DOCTOR_EXPECTED fails the run); the gRPC front end is not run on the
-   card.
+   spaces and both kernels launching again), the port's lint CLI, run
+   over the checkout's vearch_tpu_torch/ in its own process while the
+   jobs run, prints its summary line, then its seconds beside the card's
+   name and power limit (a finding fails the run), and the cluster
+   doctor runs (its exit code and checks printed; any
+   violation outside DOCTOR_EXPECTED fails the run, and so does a
+   `lint_clean` check that is skipped or not ok); the gRPC front end is
+   not run on the card.
 
 Before the last three lines comes each kernel's time before its redesign,
 quoted from PERF.md and labelled so. The last three lines are the card's
@@ -3051,6 +3055,14 @@ def phase_elastic(dev, c, cluster_ref, d=128) -> tuple[dict, dict]:
                          "reduced": REDUCED["elastic"]}, {}, {}
     base, queries = elastic_data(d)
     t_phase = time.monotonic()
+    # the port's lint CLI over this checkout, in its own process (pure
+    # host work) while the jobs below run; read before the doctor
+    import vearch_tpu_torch
+
+    lint_pool = ThreadPoolExecutor(1)
+    lint_run = lint_pool.submit(run_lint, os.path.dirname(
+        os.path.abspath(vearch_tpu_torch.__file__)))
+    lint_pool.shutdown(wait=False)
 
     def step(name):
         print(f"elastic: {name} at {time.monotonic() - t_phase:.1f}s",
@@ -3219,7 +3231,14 @@ def phase_elastic(dev, c, cluster_ref, d=128) -> tuple[dict, dict]:
     out["searches"] = {"before": before, "after_split": after,
                        "after_moves": moved_res, "s_after_drain": res}
 
-    # the operator surface: the doctor over this cluster; no gRPC here
+    # the lint's summary line, then the operator surface: the doctor over
+    # this cluster, whose lint_clean runs the same suite; no gRPC here
+    lint = lint_run.result()
+    print(lint.pop("output").rstrip(), flush=True)
+    out["lint"] = dict(lint, card=nvidia_smi())
+    print(f"lint: {lint['seconds']:.3f}s on {out['lint']['card']}",
+          flush=True)
+    check(lint["exit_code"] == 0, f"vearch-lint exit {lint['exit_code']}")
     t0 = time.monotonic()
     report, code = doctor.run(c.master_addr)
     out["doctor"] = {"exit_code": code,
@@ -3235,6 +3254,10 @@ def phase_elastic(dev, c, cluster_ref, d=128) -> tuple[dict, dict]:
           <= set(DOCTOR_EXPECTED),
           f"doctor exit {code}: unexplained violations "
           f"{sorted(set(out['doctor']['violations']) - set(DOCTOR_EXPECTED))}")
+    lint_check = next(ch for ch in report["checks"]
+                      if ch["name"] == "lint_clean")
+    check(lint_check["ok"] is True and not lint_check.get("skipped"),
+          f"doctor lint_clean: {lint_check}")
     import importlib.util
 
     out["grpc"] = ("not run on the card: grpcio is "
@@ -3444,6 +3467,19 @@ def launches_by_path(main_res, family, kernel) -> dict:
                 if isinstance(res, dict) and "launches" in res:
                     out[f"{name}.{path}"] = res["launches"][kernel]
     return out
+
+
+def run_lint(pkg: str) -> dict:
+    """`python -m vearch_tpu_torch.tools.lint pkg` in its own process,
+    from pkg's parent (so the lint that runs is pkg's own): its exit
+    code, output and wall seconds."""
+    t0 = time.monotonic()
+    out = subprocess.run(
+        [sys.executable, "-m", "vearch_tpu_torch.tools.lint", pkg],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(pkg))
+    return {"exit_code": out.returncode, "output": out.stdout + out.stderr,
+            "seconds": time.monotonic() - t0}
 
 
 def nvidia_smi() -> str:

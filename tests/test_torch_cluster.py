@@ -16,12 +16,18 @@ tools/lockcheck.py, native/) held against the reference's on the CPU.
   partition's doc count must give the reference cluster's answer: ids
   equal, scores allclose at rtol 1e-5, atol 1e-3 (FLAT's products are
   exact in f32 in both packages; only the summation order differs).
+- Lock order: concurrent upserts, searches and deletes through a port
+  `StandaloneCluster` under VEARCH_LOCKCHECK=1 record no lockcheck
+  violation, and every runtime acquisition edge is covered by the port
+  lint's static lock-order graph, which has no cycle (the reference's
+  anchor is tests/test_stress_concurrency.py).
 
 Every port partition server runs on device="cpu".
 """
 
 import os
 import re
+import threading
 
 import numpy as np
 import pytest
@@ -555,3 +561,100 @@ def test_router_grpc_front_end_is_not_ported_yet():
     ref = _replace(ref, "discipline as vearch_tpu/native)",
                    "discipline as vearch_tpu_torch/native)")
     assert _read("vearch_tpu_torch", "cluster", "grpc_server.py") == ref
+
+
+# -- lock order ------------------------------------------------------------------
+
+
+def test_cluster_stress_under_lockcheck_is_inside_the_static_graph(
+        tmp_path, monkeypatch):
+    """Writers, searchers and a deleter through a port StandaloneCluster
+    with every cluster-plane lock a lockcheck DebugLock (the env is read
+    when each lock is minted): no inversion, unguarded write or misuse,
+    and no runtime edge outside `python -m vearch_tpu_torch.tools.lint
+    --lock-graph`, whose graph has no cycle."""
+    from vearch_tpu_torch.cluster.standalone import StandaloneCluster
+    from vearch_tpu_torch.sdk.client import VearchClient as PortClient
+    from vearch_tpu_torch.tools import lockcheck
+    from vearch_tpu_torch.tools.lint import callgraph
+    from vearch_tpu_torch.tools.lint.core import run_paths
+
+    lockcheck.reset()
+    monkeypatch.setenv("VEARCH_LOCKCHECK", "1")
+    rng = np.random.default_rng(7)
+    vecs = rng.standard_normal((400, D)).astype(np.float32)
+    cluster = StandaloneCluster(
+        data_dir=str(tmp_path), n_ps=2,
+        ps_kwargs={"device": "cpu", "heartbeat_interval": 0.3,
+                   "flush_interval": 3600.0})
+    try:
+        cluster.start()
+        cl = PortClient(cluster.router_addr)
+        cl.create_database("db")
+        cl.create_space("db", dict(_space("s"), replica_num=2))
+        cl.upsert("db", "s", [{"_id": f"seed{i}", "v": vecs[i],
+                               "cat": i % 5, "tag": "t"}
+                              for i in range(100)])
+        errors: list[Exception] = []
+        stop = threading.Event()
+
+        def writer(tid):
+            try:
+                for b in range(4):
+                    base = 100 + tid * 100 + b * 25
+                    cl.upsert("db", "s", [
+                        {"_id": f"w{tid}_{base + i}",
+                         "v": vecs[(base + i) % 400], "cat": 1, "tag": "w"}
+                        for i in range(25)])
+            except Exception as e:
+                errors.append(e)
+
+        def searcher():
+            try:
+                while not stop.is_set():
+                    out = cl.search("db", "s",
+                                    [{"field": "v", "feature": vecs[:2]}],
+                                    limit=3)
+                    assert len(out) == 2
+            except Exception as e:
+                errors.append(e)
+
+        def deleter():
+            try:
+                for i in range(0, 40, 4):
+                    cl.delete("db", "s", document_ids=[
+                        f"seed{j}" for j in range(i, i + 4)])
+            except Exception as e:
+                errors.append(e)
+
+        threads = [threading.Thread(target=writer, args=(t,), daemon=True,
+                                    name=f"stress-w{t}") for t in range(2)]
+        threads += [threading.Thread(target=searcher, daemon=True,
+                                     name=f"stress-s{i}") for i in range(2)]
+        threads += [threading.Thread(target=deleter, daemon=True,
+                                     name="stress-del")]
+        for t in threads:
+            t.start()
+        for t in threads[:2] + threads[-1:]:
+            t.join(timeout=180)
+        stop.set()
+        for t in threads[2:4]:
+            t.join(timeout=60)
+        assert not errors, errors
+        out = cl.search("db", "s", [{"field": "v", "feature": vecs[:1]}],
+                        limit=400)
+        assert len(out[0]) == 100 - 40 + 2 * 100
+        edges = lockcheck.acquisition_edges()
+        assert edges, "no DebugLock edges recorded: lockcheck inert?"
+        lockcheck.check()
+    finally:
+        cluster.stop()
+        lockcheck.reset()
+    run_paths([os.path.join(REPO, "vearch_tpu_torch")])
+    graph = callgraph.LAST.lock_graph_artifact()
+    assert graph["cycles"] == []
+    uncovered = sorted((a, b) for (a, b) in edges
+                       if not callgraph.edge_covered(graph, a, b))
+    assert not uncovered, (
+        "runtime acquisition edges missing from the static lock-order "
+        f"graph: {uncovered}")

@@ -19,10 +19,15 @@
   each package opening the other's data_dir.
 - The other index types on a disk store (IVFPQ, IVFRABITQ, FLAT, HNSW
   "auto"): ids equal to the reference's, and the disk branches taken.
+  The HNSW case first makes sure the reference's native graph loaded
+  whole in this worker (`ref_hnsw_native`).
 """
 
+import fcntl
+import hashlib
 import json
 import os
+import time
 
 import numpy as np
 import pytest
@@ -517,8 +522,48 @@ def test_ivfrabitq_on_disk_store_matches_reference(tmp_path):
     _close(ref, port)
 
 
+def _ref_hnsw_build_done(ref_hnsw) -> bool:
+    """Whether the reference's build wrote its source hash, which it
+    does only once g++ has finished the library."""
+    with open(ref_hnsw._SRC, "rb") as f:
+        want = hashlib.sha256(f.read()).hexdigest()
+    try:
+        with open(ref_hnsw._HASH) as f:
+            return f.read().strip() == want
+    except OSError:
+        return False
+
+
+@pytest.fixture(scope="module")
+def ref_hnsw_native(tmp_path_factory):
+    """The reference's native HNSW loader (vearch_tpu/native/
+    hnsw_graph.py) links straight onto its final path, so a process
+    that loads while another still writes the file gets a half-written
+    library, and the loader keeps None for the rest of that process.
+    Serialise this build across the test workers with a file lock; where
+    this worker's first load failed, wait for the build in flight to
+    finish, then load again."""
+    from vearch_tpu.native import hnsw_graph as ref_hnsw
+
+    lock = tmp_path_factory.getbasetemp().parent / "ref_hnsw_build.lock"
+    with open(lock, "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            if not ref_hnsw.available():
+                deadline = time.monotonic() + 200  # the loader's g++ limit
+                while (os.path.exists(ref_hnsw._SO)
+                       and not _ref_hnsw_build_done(ref_hnsw)
+                       and time.monotonic() < deadline):
+                    time.sleep(0.5)
+                ref_hnsw._tried = False
+                ref_hnsw.available()
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 @pytest.mark.parametrize("metric", ["L2", "InnerProduct"])
-def test_hnsw_auto_on_disk_store_is_the_graph(tmp_path, metric):
+def test_hnsw_auto_on_disk_store_is_the_graph(tmp_path, metric,
+                                              ref_hnsw_native):
     extra = {"store_type": "Disk", "nlinks": 12, "efConstruction": 64,
              "efSearch": 48}
     docs, queries = _docs(n=1500)

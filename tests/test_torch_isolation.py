@@ -3,7 +3,8 @@ serving a bf16 disk store under DISKANN, and serving an int4-mirror and
 an OPQ IVFPQ index under the runtime layer (accountant, flight recorder,
 quality monitor, device sampler), serving a CPU cluster (master,
 router, partition servers) through the port's SDK, and serving
-FLAT_SHARDED and an IVFPQ mesh over virtual shards pulls in neither JAX,
+FLAT_SHARDED and an IVFPQ mesh over virtual shards, and running the
+port's lint over the port's tree as its doctor does, pulls in neither JAX,
 nor anything of vearch_tpu, nor ml_dtypes (the GPU machine has none), and
 its entry points refuse to run on the CPU unless asked to."""
 
@@ -121,6 +122,8 @@ for itype, params in (("FLAT_SHARDED", {}),
 ivf_ops.set_dispatch_ledger(None)
 mesh_lib.set_virtual_device_count(None)
 doctor.run_checks({"ps": [], "routers": []})
+# the port's lint over the port's tree, as the doctor runs it
+lint_clean = doctor._check_lint_clean()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "vearch_tpu" or m.startswith("vearch_tpu.")
@@ -134,6 +137,7 @@ loaded = sorted(getattr(m, "__file__", None) or "" for m in
                 list(sys.modules.values()))
 print(json.dumps({"modules": names, "bad": bad, "refused": refused,
                   "served": served, "mesh": mesh_tags,
+                  "lint_clean": lint_clean[0],
                   "hnsw": LIBRARY.path,
                   "from_ref": [f for f in loaded if f.startswith(ref_pkg)]}))
 """
@@ -206,12 +210,25 @@ def test_port_imports_no_jax_and_needs_explicit_cpu():
                 "vearch_tpu_torch.index.sharded_flat",
                 "vearch_tpu_torch.index.builtin",
                 "vearch_tpu_torch.obs.doctor",
-                "vearch_tpu_torch.obs.obs_docs",
+                "vearch_tpu_torch.tools.lint",
+                "vearch_tpu_torch.tools.lint.__main__",
+                "vearch_tpu_torch.tools.lint.callgraph",
+                "vearch_tpu_torch.tools.lint.config",
+                "vearch_tpu_torch.tools.lint.core",
+                "vearch_tpu_torch.tools.lint.rules_accounting",
+                "vearch_tpu_torch.tools.lint.rules_buckets",
+                "vearch_tpu_torch.tools.lint.rules_dispatch",
+                "vearch_tpu_torch.tools.lint.rules_errors",
+                "vearch_tpu_torch.tools.lint.rules_interproc",
+                "vearch_tpu_torch.tools.lint.rules_locks",
+                "vearch_tpu_torch.tools.lint.rules_obs",
+                "vearch_tpu_torch.tools.lint.rules_quality",
                 "vearch_tpu_torch.tools.backup_cli",
                 "vearch_tpu_torch.tools.elastic_cli"):
         assert mod in got["modules"]
     assert got["mesh"] == ["sharded_flat_scan", "sharded_fused_scan_rerank"]
     assert got["refused"] is True
+    assert got["lint_clean"] is True
     assert got["served"] == "d7"
     assert got["from_ref"] == []
     assert got["hnsw"].startswith(

@@ -4,9 +4,9 @@ the elasticity and backup CLIs, and the cluster doctor.
 - Copies: `cluster/grpc_server.py` (tests/test_torch_cluster.py),
   `tools/backup_cli.py`, `tools/elastic_cli.py` and `obs/doctor.py` are
   the reference's files with `vearch_tpu.` rewritten to
-  `vearch_tpu_torch.`, plus the edits each test names;
-  `obs/obs_docs.py` holds the reference lint rule's name patterns and
-  drift functions verbatim.
+  `vearch_tpu_torch.`, plus the edits each test names; the doctor's
+  drift check reads the port's lint rule `tools/lint/rules_obs.py`,
+  whose name patterns and drift functions are the reference's verbatim.
 - gRPC: a port cluster and a reference cluster, each with its router's
   gRPC port open, take the same docs through gRPC; searches, queries and
   deletes answer with the same ids, scores allclose at rtol 1e-5, atol
@@ -16,8 +16,8 @@ the elasticity and backup CLIs, and the cluster doctor.
   drain}` and `python -m vearch_tpu_torch.tools.backup_cli` run as
   subprocesses against a port cluster; every doc survives.
 - Doctor: the SLO-burn scenario of tests/test_accounting.py on a port
-  cluster gives the reference's verdicts, check by check, apart from
-  `lint_clean` (not ported: skipped with its reason), and exit code 1 from
+  cluster gives the reference's verdicts, check by check (`lint_clean`
+  runs the port's lint over the port's tree), and exit code 1 from
   `python -m vearch_tpu_torch doctor` as from `doctor.run`.
 
 Every port partition server runs on device="cpu".
@@ -40,7 +40,7 @@ from vearch_tpu.tools.lint import rules_obs as ref_rules_obs
 from vearch_tpu_torch.cluster import rpc
 from vearch_tpu_torch.cluster.standalone import StandaloneCluster
 from vearch_tpu_torch.obs import doctor
-from vearch_tpu_torch.obs import obs_docs
+from vearch_tpu_torch.tools.lint import rules_obs
 from vearch_tpu_torch.sdk.client import VearchClient
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -73,22 +73,16 @@ def test_elastic_cli_differs_only_in_its_usage_lines():
 
 
 def test_doctor_differs_only_where_stated():
-    """The copy reads the port's drift helpers and reports lint_clean as
-    not run (the reference's arm for a missing source tree)."""
+    """The copy differs only in its usage lines: its drift check reads
+    the port's lint rule, and lint_clean runs the port's lint over the
+    port's tree, both through the rewritten imports."""
     ref = _rewrite(_read("vearch_tpu", "obs", "doctor.py"))
-    for old, new in (("python -m vearch_tpu doctor",
-                      "python -m vearch_tpu_torch doctor"),
-                     ("from vearch_tpu_torch.tools.lint import rules_obs",
-                      "from vearch_tpu_torch.obs import obs_docs as "
-                      "rules_obs")):
-        ref = ref.replace(old, new)
-    start = ref.index("_LINT_CLEAN_MEMO: tuple")
-    end = ref.index("def run_checks(")
-    port = _read("vearch_tpu_torch", "obs", "doctor.py")
-    p_start = port.index("def _check_lint_clean()")
-    p_end = port.index("def run_checks(")
-    assert port[:p_start] + port[p_end:] == ref[:start] + ref[end:]
-    assert doctor._check_lint_clean()[0] is None
+    ref = ref.replace("python -m vearch_tpu doctor",
+                      "python -m vearch_tpu_torch doctor")
+    assert _read("vearch_tpu_torch", "obs", "doctor.py") == ref
+    ok, detail = doctor._check_lint_clean()
+    assert ok is True, detail
+    assert detail.startswith("0 hard finding(s), ")
 
 
 @pytest.mark.parametrize("name", ["_METRIC_RE", "_TAG_RE", "_SPAN_RES",
@@ -96,7 +90,7 @@ def test_doctor_differs_only_where_stated():
                                   "source_names", "doc_names",
                                   "drift_failures"])
 def test_obs_docs_helpers_are_the_references(name):
-    mine, ref = getattr(obs_docs, name), getattr(ref_rules_obs, name)
+    mine, ref = getattr(rules_obs, name), getattr(ref_rules_obs, name)
     if callable(mine) and not hasattr(mine, "pattern"):
         assert inspect.getsource(mine) == inspect.getsource(ref)
     else:
@@ -376,9 +370,8 @@ def test_doctor_on_slo_burn_matches_reference(tmp_path):
     (pcode, pchecks, pviol), (rcode, rchecks, rviol) = \
         verdicts["port"], verdicts["ref"]
     assert pcode == rcode == 1
-    # skipped: passes, as the reference's arm without a source tree does
-    assert pchecks.pop("lint_clean") == (True, True)
-    rchecks.pop("lint_clean")
+    # each package's lint over its own tree: clean, not skipped
+    assert pchecks["lint_clean"] == (True, False)
     assert pchecks == rchecks
     assert "slo_burn" in pviol and "usage_conservation" not in pviol
-    assert pviol - {"lint_clean"} == rviol - {"lint_clean"}
+    assert pviol == rviol

@@ -89,18 +89,11 @@ from vearch_tpu_torch.obs.flight_recorder import RECORDER
 from vearch_tpu_torch.ops import ivf as ivf_ops
 from vearch_tpu_torch.ops import perf_model
 from vearch_tpu_torch.ops.distance import score_to_metric
+# the process's one wall-clock anchor of time.monotonic() zero: phase
+# spans carry epoch microseconds while every duration is monotonic
+from vearch_tpu_torch.utils import MONO_EPOCH_OFFSET, mono_us
 
 _log = logging.getLogger("vearch_tpu_torch.engine")
-
-# wall-clock epoch of time.monotonic() zero: phase spans carry
-# epoch microseconds while every duration is measured monotonically
-MONO_EPOCH_OFFSET = time.time() - time.monotonic()
-
-
-def mono_us(t_monotonic: float) -> int:
-    """Monotonic seconds -> wall-anchored epoch microseconds (the
-    reference's span `start_us` convention)."""
-    return int((MONO_EPOCH_OFFSET + t_monotonic) * 1e6)
 
 
 @dataclass

@@ -116,7 +116,7 @@ class DiskANNIndex(VectorIndex):
 
     # -- disk scan-tier files ------------------------------------------------
 
-    def _map_files(self, capacity: int) -> None:
+    def _map_files(self, capacity: int) -> None:  # lint: allow[serving-blocking] geometric-growth remap: truncate+rebind amortized over absorb batches, no data copy
         d = self.store.dimension
         for path, row_bytes in (
             (self._a8_path, d),

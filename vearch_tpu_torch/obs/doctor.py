@@ -124,7 +124,7 @@ def _check_obs_docs() -> tuple[bool | None, str]:
     bare wheel against a remote cluster)."""
     import os
 
-    from vearch_tpu_torch.obs import obs_docs as rules_obs
+    from vearch_tpu_torch.tools.lint import rules_obs
 
     pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     repo_root = os.path.dirname(pkg_root)
@@ -139,12 +139,40 @@ def _check_obs_docs() -> tuple[bool | None, str]:
     return True, "docs match source"
 
 
+_LINT_CLEAN_MEMO: tuple[bool | None, str] | None = None
+
+
 def _check_lint_clean() -> tuple[bool | None, str]:
-    """The vearch-lint suite checks the reference's own sources against
-    its path tables and is not ported: (None, reason), the reference's
-    arm for a missing source tree."""
-    return None, ("vearch-lint is not ported to vearch_tpu_torch "
-                  "(it checks vearch_tpu's sources); skipped")
+    """The full vearch-lint suite — including the interprocedural
+    VL5xx serving-path/lock-graph proofs — run in-process over the
+    installed source tree. (None, reason) when the tree is not
+    available (doctor from a bare wheel against a remote cluster).
+    Memoized for the process: doctor can run many times per session
+    and the whole-package scan costs seconds; the source tree does not
+    change under a running process."""
+    global _LINT_CLEAN_MEMO
+    if _LINT_CLEAN_MEMO is not None:
+        return _LINT_CLEAN_MEMO
+    import os
+
+    from vearch_tpu_torch.tools.lint import (
+        Allowlist, default_allowlist_path, run_paths,
+    )
+
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if not os.path.isdir(os.path.join(pkg_root, "tools", "lint")):
+        return None, "source tree not present; skipped"
+    findings = run_paths(
+        [pkg_root], allowlist=Allowlist(default_allowlist_path()))
+    hard = [f for f in findings if not f.suppressed]
+    if hard:
+        out = (False, "; ".join(
+            f"{f.rule}[{f.tag}] {f.path}:{f.line}" for f in hard[:5]))
+    else:
+        allowed = sum(1 for f in findings if f.suppressed)
+        out = (True, f"0 hard finding(s), {allowed} reason-waived")
+    _LINT_CLEAN_MEMO = out
+    return out
 
 
 def run_checks(report: dict[str, Any]) -> list[dict[str, Any]]:

@@ -100,8 +100,7 @@ class CompileFlightRecorder:
             self._seen.add(key)
             self._counts[program] = self._counts.get(program, 0) + 1
             self._events.append({
-                # operator-facing stamp for log correlation, not math
-                "ts": time.time(),
+                "ts": time.time(),  # lint: allow[wall-clock] event stamp for operator correlation
                 "path": program,
                 "shapes": shape_sig,
                 "elapsed_ms": round(float(elapsed_ms), 3),

@@ -263,7 +263,7 @@ class QualityMonitor:
         fields = sorted(vectors)
         batches = {}
         for f in fields:
-          
+            # lint: allow[host-sync] copies the sampled (host) query payload for the shadow job, no device involved
             arr = np.asarray(vectors[f], dtype=np.float32)
             batches[f] = arr[None, :] if arr.ndim == 1 else arr
         nrows = min(len(results),

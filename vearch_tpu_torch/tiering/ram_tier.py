@@ -168,7 +168,7 @@ class HostRamSlabTier:
             budget_bytes, admit_after=admit_after, name="tier_ram_slab"
         )
 
-    def get(
+    def get(  # lint: allow[serving-blocking] slab-tier miss path is the design point: RAM hit is free, a miss pays the NVMe gather once behind WILLNEED readahead and is then admission-cached
         self,
         bucket: int,
         gen: int,
@@ -212,7 +212,7 @@ class HostRowCache:
             budget_bytes, admit_after=admit_after, name="tier_ram_row"
         )
 
-    def get_rows(
+    def get_rows(  # lint: allow[serving-blocking] miss-path faults are the design point: bounded by the RAM slab cache + WILLNEED readahead
         self,
         docids: np.ndarray,
         loader: Callable[[np.ndarray], np.ndarray],

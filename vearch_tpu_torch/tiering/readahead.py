@@ -45,7 +45,7 @@ def _coalesce(ids: np.ndarray, gap: int = _GAP_ROWS) -> list[tuple[int, int]]:
     return [(int(s[a]), int(s[b] - s[a] + 1)) for a, b in zip(starts, ends)]
 
 
-def advise_rows(arr: np.ndarray, ids: np.ndarray) -> int:
+def advise_rows(arr: np.ndarray, ids: np.ndarray) -> int:  # lint: allow[serving-blocking] madvise(WILLNEED) IS the fault-cost mitigation: coalesced runs, bounded syscalls, never raises
     """Advise WILLNEED for the pages holding `arr[ids]` when `arr` is an
     np.memmap. Returns the number of advised runs (0 = no-op: in-memory
     array, unsupported platform, or empty id set). Never raises."""

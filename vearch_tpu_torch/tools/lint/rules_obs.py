@@ -1,15 +1,26 @@
-"""Observability-drift helpers for the doctor's `obs_docs` check: the
-port's copies of vearch_tpu/tools/lint/rules_obs.py's name patterns,
-`names_from_text`, `source_names`, `doc_names` and `drift_failures`,
-which need no lint framework (the lint suite itself is not ported).
-docs/OBSERVABILITY.md must document exactly the metric, span and span
-tag names the source registers, both directions.
+"""Observability-drift rule (VL401).
+
+The registries of record are the metric registrations, span factories,
+and span tags in the source tree; docs/OBSERVABILITY.md must document
+exactly that set, both directions. An undocumented metric is invisible
+to the operator; a documented-but-unregistered one lies to them
+mid-incident, which is worse.
+
+The port's copy of vearch_tpu/tools/lint/rules_obs.py, and the one home
+of the port's drift helpers: the doctor's ``obs_docs`` check
+(obs/doctor.py) reads them.
+
+Names are compared after normalizing dynamic segments: an f-string
+``{tag}`` in source and a ``{tag}``/``<tag>`` placeholder in the doc
+both become ``*``.
 """
 
 from __future__ import annotations
 
 import os
 import re
+
+from vearch_tpu_torch.tools.lint.core import FileContext, Finding, Rule, register
 
 # metric registration call sites — counter/gauge/histogram and the
 # callback variants — with the name literal possibly on the next line.
@@ -37,6 +48,17 @@ _SPAN_RES = [
     re.compile(r"spans\.append\(\[\s*f?[\"']([a-z_.{}]+)[\"']", re.S),
     re.compile(r"spans\.extend\(\s*\[\s*f?[\"']([a-z_.{}]+)[\"']", re.S),
 ]
+
+
+def repo_root() -> str:
+    import vearch_tpu_torch
+
+    return os.path.dirname(os.path.dirname(os.path.abspath(
+        vearch_tpu_torch.__file__)))
+
+
+def default_doc_path() -> str:
+    return os.path.join(repo_root(), "docs", "OBSERVABILITY.md")
 
 
 def _normalize(name: str) -> str:
@@ -112,3 +134,52 @@ def drift_failures(
     for name in sorted(src_tags - doc_words):
         failures.append(f"span tag set but undocumented: {name}")
     return failures
+
+
+def check_package(src_dir: str | None = None,
+                  doc_path: str | None = None) -> list[str]:
+    """The whole-package drift check the script CLI runs: returns the
+    failure lines (empty = in sync)."""
+    src = src_dir or os.path.join(repo_root(), "vearch_tpu_torch")
+    doc = doc_path or default_doc_path()
+    metrics, spans, tags = source_names(src)
+    return drift_failures(metrics, spans, tags, doc)
+
+
+def summary(src_dir: str | None = None) -> str:
+    src = src_dir or os.path.join(repo_root(), "vearch_tpu_torch")
+    metrics, spans, tags = source_names(src)
+    return (f"obs docs in sync: {len(metrics)} metrics, "
+            f"{len(spans)} span families, {len(tags)} span tags")
+
+
+def _check_project(contexts: list[FileContext]):
+    # only meaningful on a whole-package scan: the bidirectional check
+    # needs every registration in view, or documented names would look
+    # stale. cluster/metrics.py anchors "the package is in the scan".
+    if not any(c.path.replace("\\", "/").endswith("cluster/metrics.py")
+               for c in contexts):
+        return
+    doc = default_doc_path()
+    if not os.path.exists(doc):
+        yield Finding("VL401", "obs-drift", doc, 0,
+                      "docs/OBSERVABILITY.md missing")
+        return
+    metrics: set[str] = set()
+    spans: set[str] = set()
+    tags: set[str] = set()
+    for c in contexts:
+        m, s, t = names_from_text(c.source)
+        metrics |= m
+        spans |= s
+        tags |= t
+    for failure in drift_failures(metrics, spans, tags, doc):
+        yield Finding("VL401", "obs-drift", doc, 0, failure)
+
+
+register(Rule(
+    id="VL401", tag="obs-drift",
+    doc="metric/span/tag names in source and OBSERVABILITY.md stay in "
+        "sync, both directions",
+    check_project=_check_project,
+))
