@@ -198,6 +198,32 @@ Phases:
    violation outside DOCTOR_EXPECTED fails the run, and so does a
    `lint_clean` check that is skipped or not ok); the gRPC front end is
    not run on the card.
+11. The roles as processes (`phase_processes`), after phase_cluster's
+   cluster stopped and the card was emptied: cloud/smoke_torch.py's
+   topology, 3 masters (metadata raft), 2 routers and 3 partition
+   servers, each `python -m vearch_tpu_torch` in its own process, the
+   servers without `--device` (so on the card; one that cannot reach it
+   fails the phase). phase_cluster's space and PROCESS_ROWS rows,
+   upserted through both routers at once; every replica built; each
+   server's /metrics must show live bytes under a cuda label and the
+   card must list at least 3 new contexts (nvidia-smi); the full scan at
+   rerank 512 and 128, the probe regime and 60 B=1 searches through the
+   routers (recall@10 >= 0.95 at rerank 512; rows differing from
+   phase_cluster's ids counted), whose dispatch tags (profile: true)
+   must be phase_cluster's (the launch counters live in the children);
+   gated searches through one router while the other re-upserts
+   CLUSTER_WRITES docs; kill -9 of partition 0's leader while a writer
+   adds PROCESS_FAILOVER_WRITES new docs (leader, write and search
+   seconds; every acked id read back by a query by ids; recall@10 >=
+   0.95 after); the killed server restarted on its data dir (WAL
+   replay, catch-up until 3 replicas count the same); kill -9 of the
+   metadata leader (both routers serve, a new leader within a
+   deadline); an S3 round trip of a PROCESS_S3_ROWS-doc space against
+   the smoke's MockS3 (backup, delete all, restore: every replica counts
+   them again and a rerank-512 search returns the same ids); the
+   doctor as its own process (violations within DOCTOR_EXPECTED,
+   `lint_clean` ok). Every child is killed in a `finally`, and on a
+   failure the tail of each child's log is printed.
 
 Before the last three lines comes each kernel's time before its redesign,
 quoted from PERF.md and labelled so. The last three lines are the card's
@@ -235,7 +261,8 @@ F32_U = 2.0 ** -24  # unit roundoff of f32
 GRAPH_ROWS, GRAPH_B = 20_000, 64  # HNSW graph mode (host build), reduced
 HNSWQ_ROWS = 200_000  # IVFPQ + HNSW coarse quantizer (per_index.py's n)
 FLAT_DISK_B = 64  # queries of the streaming FLAT scan on a disk store
-CLUSTER_ROWS = 200_000  # rows served by phase_cluster, reduced
+CLUSTER_ROWS = 100_000  # rows served by phase_cluster, reduced
+PROCESS_ROWS = 20_000  # rows served by phase_processes, reduced
 # phase_family's and phase_disk's cuts of scale, each with its reason
 REDUCED = {
     "hnsw_graph": f"{GRAPH_ROWS} rows, {GRAPH_B} queries: the graph is "
@@ -252,12 +279,16 @@ REDUCED = {
     "cluster": f"{CLUSTER_ROWS} rows (the main path's first), 2 "
                "partitions x 3 replicas: every doc crosses the router and the "
                "raft log of 3 replicas as JSON on one Python process "
-               "(824-1259 docs/s on the chip machine's hosts), so a 1M-row "
-               "ingest does not fit the run's time limit. Its rerank-512 "
-               "full scans name topk_mode 'blockmax': at 100k rows a "
-               "partition the 'auto' gate (blocks >= 4 x max(32, rerank / "
-               "4)) would select exactly, where the main path's 1M rows "
-               "select by block maxima",
+               "(824-1259 docs/s on the chip machine's hosts; this run's "
+               "rate, and the seconds it projects for 1M rows, follow), "
+               "so a 1M-row ingest does not fit the run's time limit, and "
+               "the run, which stood at 1,023-1,120 s of its 1,200 s at "
+               "200,000 rows, gives phase_processes the ingest time this "
+               "cut saves. Its full scans (rerank 512 and bench.py's 128) "
+               "name topk_mode 'blockmax': at 50,000 rows a partition "
+               "the 'auto' gate (blocks >= 4 x max(32, rerank / 4): 128 "
+               "blocks, 65,536 rows, at rerank 128) would select exactly, "
+               "where the main path's 1M rows select by block maxima",
     "elastic": "10,000 seed docs (bench.py's recipe at its density of "
                "200 rows a cluster, seed 7, with 1024 queries perturbed "
                "from them) in a space of 1 partition x 3 replicas on "
@@ -266,13 +297,24 @@ REDUCED = {
                "which is the job cut: a split copies every doc through "
                "the children's raft logs as JSON at 764 docs/s on the "
                "card (PERF.md section 6; this run prints its own rate and "
-               "the time it projects for one of the cluster's 100,000-doc "
-               "partitions, 131 s there), so splitting, building and "
-               "moving that partition's children would add ~150-200 s to "
-               "a run that stood at 874 s of its 1,200 s limit with this "
-               "cut. The drain moves the cluster's own re-placed "
-               "100,000-doc replicas at full size. The rerank-512 full "
-               "scans name topk_mode 'blockmax' as phase_cluster's do",
+               "the time it projects for one of the cluster's "
+               f"{CLUSTER_ROWS // 2:,}-doc partitions), so splitting, "
+               "building and moving that partition's children would add "
+               "~80-120 s to a run that has no room left for it. The drain "
+               f"moves the cluster's own re-placed {CLUSTER_ROWS // 2:,}-doc "
+               "replicas at full size (REDUCED['cluster']). The rerank-512 "
+               "full scans name topk_mode 'blockmax' as phase_cluster's do",
+    "processes": f"{PROCESS_ROWS} rows (the main path's first) in "
+                 "phase_cluster's space, with its requests: the roles as "
+                 "processes ingest through the same JSON and raft path "
+                 "(REDUCED['cluster']), and at phase_cluster's 100,000 "
+                 "rows (the same rows, so ids compared row by row) the "
+                 "whole run took 1,122 s of its 1,200 s on an H100 host, "
+                 "and 1,136 s at 50,000 rows on a slower one (PERF.md "
+                 "section 6), so the S3 round trip was cut first (to "
+                 "5,000 docs of elastic_data's recipe, 10,000 before) and "
+                 "then these rows; 5,000 new docs written across the "
+                 "partition leader's kill -9",
     "mesh": "4 virtual shards on the one card "
             "(parallel/mesh.set_virtual_device_count): the machine has "
             "one card, so the merge across cards is not measured; the "
@@ -2691,7 +2733,7 @@ CLUSTER_WRITES = 10_000  # docs the concurrent writer re-upserts
 CLUSTER_GATED = dict(GATED_PARAMS, topk_mode="blockmax")
 CLUSTER_REQUESTS = {
     "full_rerank512": CLUSTER_GATED,
-    "full_rerank128": BENCH_PARAMS,
+    "full_rerank128": dict(BENCH_PARAMS, topk_mode="blockmax"),
     "probe_rerank512": dict(PROBE_PARAMS, **GATED_PARAMS),
 }
 
@@ -2781,6 +2823,21 @@ def cluster_engine_alone(base, cats, queries, truth) -> dict:
     del eng
     release_device_memory()
     return out
+
+
+def profiled_tags(cl, queries, params) -> tuple[dict, list]:
+    """One B-query search through the router with `profile: true`: the
+    profile (router, partitions, engines; its wall ms) and the dispatch
+    tags, which must be the same on every partition."""
+    t0 = time.monotonic()
+    prof = cl.search("db", "s", [{"field": "emb", "feature": queries}],
+                     limit=10, index_params=params, cache=False,
+                     profile=True)
+    prof = dict(prof["profile"], wall_ms=(time.monotonic() - t0) * 1e3)
+    tags = {json.dumps(p["dispatches"]["tags"])
+            for p in prof["partitions"].values()}
+    check(len(tags) == 1, f"partitions dispatched differently: {tags}")
+    return prof, json.loads(tags.pop())
 
 
 def cluster_counts(c, pids=None) -> dict:
@@ -2995,15 +3052,15 @@ def rows_differing(a, b) -> int:
     return int(sum(x != y for x, y in zip(a, b)))
 
 
-def elastic_data(d=128, b=1024, seed=7):
+def elastic_data(d=128, b=1024, seed=7, seeds=ELASTIC_ROWS):
     """bench.py's recipe at the elastic space's size and at its density
-    (200 rows a cluster, as 1M rows in 5000 clusters): ELASTIC_ROWS seed
-    rows and ELASTIC_WRITES more for the writer, and B queries perturbed
-    from seed rows (as build_data's are from its rows)."""
-    n = ELASTIC_ROWS + ELASTIC_WRITES
+    (200 rows a cluster, as 1M rows in 5000 clusters): `seeds` seed rows
+    and ELASTIC_WRITES more for the writer, and B queries perturbed from
+    seed rows (as build_data's are from its rows)."""
+    n = seeds + ELASTIC_WRITES
     rows = build_data(n=n, d=d, seed=seed, nc=n // 200)[0]
     rng = np.random.default_rng(seed + 1)
-    queries = rows[rng.choice(ELASTIC_ROWS, b, replace=False)] + 0.1 * \
+    queries = rows[rng.choice(seeds, b, replace=False)] + 0.1 * \
         rng.standard_normal((b, d)).astype(np.float32)
     return rows, queries.astype(np.float32)
 
@@ -3012,18 +3069,23 @@ def elastic_data(d=128, b=1024, seed=7):
 # other violation fails the run
 DOCTOR_EXPECTED = {
     "post_warmup_compiles": "the flight recorder's warm-up ends with the "
-                            "kernel builds at start, so every later first "
-                            "launch shape (split children, moved replicas) "
-                            "is a compile event after it",
+                            "kernel builds at start (in phase_processes, "
+                            "with each server's start), so every later "
+                            "first launch shape (split children, moved "
+                            "replicas, a server's first searches) is a "
+                            "compile event after it",
     "hbm_drift": "each partition server's sampler holds the process's "
-                 "allocated bytes against its own engines' models, and "
-                 "every server here shares one process and one card "
-                 "(reference semantics, ROADMAP queue 3)",
+                 "allocated bytes against its own engines' models: in "
+                 "phase_cluster every server shares one process and one "
+                 "card; in phase_processes each server process holds "
+                 "130-240 MB past its own models, which no measurement "
+                 "here attributes yet (PERF.md section 6, ROADMAP queue 3)",
     "cardinality_ceiling": "a partition server's /metrics page carries "
                            "series per hosted partition, as the "
                            "reference's does; after the split and the "
-                           "moves a server hosts 4-5 partitions, past "
-                           "the ceiling the 2-partition CI soak sets",
+                           "moves a server hosts 4-5 partitions (3 in "
+                           "phase_processes), past the ceiling the "
+                           "2-partition CI soak sets",
 }
 
 
@@ -3239,6 +3301,12 @@ def phase_elastic(dev, c, cluster_ref, d=128) -> tuple[dict, dict]:
     print(f"lint: {lint['seconds']:.3f}s on {out['lint']['card']}",
           flush=True)
     check(lint["exit_code"] == 0, f"vearch-lint exit {lint['exit_code']}")
+    # the doctor reads each server's last index-health sample, taken
+    # every 10 s: sample it now, after the moved replicas' builds, or a
+    # replica built within the period reads as unindexed
+    for ps in c.ps_nodes:
+        if not ps._stop.is_set():
+            ps._quality.collect_health()
     t0 = time.monotonic()
     report, code = doctor.run(c.master_addr)
     out["doctor"] = {"exit_code": code,
@@ -3270,12 +3338,591 @@ def phase_elastic(dev, c, cluster_ref, d=128) -> tuple[dict, dict]:
     return out, paths
 
 
-def phase_cluster(dev, base, queries) -> tuple[dict, dict, tuple]:
+# -- phase 9c: the cluster's roles as processes -------------------------------
+
+PROCESS_FAILOVER_WRITES = 5_000  # new docs written across the kill -9
+PROCESS_S3_ROWS = 5_000  # docs of the S3 round trip's space (REDUCED)
+PROCESS_DEADLINE_S = 120.0  # each wait of phase_processes
+# a partition server samples its card every 5 s (DeviceSampler's
+# default) and its engines' index health every 10 s (QualityMonitor's);
+# the doctor reads the last samples, so it runs one period of each after
+# the last request and the last build, not on a search's workspace or
+# the health of an engine from before its build or restore
+PROCESS_QUIET_S = 11.0
+PROCESS_METRIC = re.compile(
+    r'^vearch_ps_device_hbm_live_bytes\{device="([^"]+)"\} (\S+)$', re.M)
+
+
+def smoke_torch():
+    """cloud/smoke_torch.py (the port's cluster smoke) as a module: its
+    `Roles`, `start_topology`, `meta_leader` and `MockS3` drive
+    phase_processes."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "smoke_torch", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "cloud", "smoke_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def compute_apps() -> list:
+    """The card's compute contexts as nvidia-smi lists them: [pid,
+    process name, MiB] rows."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,process_name,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return [line.split(", ") for line in out.stdout.strip().splitlines()
+            if line.strip()]
+
+
+def ps_device_bytes(addr: str) -> dict:
+    """`vearch_ps_device_hbm_live_bytes` per device label, read from a
+    partition server's /metrics page."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://{addr}/metrics", timeout=30) as r:
+        text = r.read().decode()
+    return {m.group(1): float(m.group(2))
+            for m in PROCESS_METRIC.finditer(text)}
+
+
+def process_counts(ps_addrs, pids) -> dict:
+    """Each partition's doc count on each replica (node id -> count),
+    read from the /ps/stats of every partition server in `ps_addrs`
+    (node id -> address), for the partitions `pids`."""
+    from vearch_tpu_torch.cluster import rpc
+
+    out = {}
+    for node, addr in ps_addrs.items():
+        try:
+            stats = rpc.call(addr, "GET", "/ps/stats", timeout=30.0)
+        except rpc.RpcError:
+            continue
+        for pid, part in stats["partitions"].items():
+            if int(pid) in pids:
+                out.setdefault(pid, {})[str(node)] = part["doc_count"]
+    return out
+
+
+def process_raft(ps_addrs, pids) -> dict:
+    """Each replica's raft state (role, term, commit, applied, log
+    indexes) of the partitions `pids`: what a failed wait reports."""
+    from vearch_tpu_torch.cluster import rpc
+
+    out = {}
+    for node, addr in ps_addrs.items():
+        try:
+            stats = rpc.call(addr, "GET", "/ps/stats", timeout=30.0)
+        except rpc.RpcError as e:
+            out[str(node)] = repr(e)
+            continue
+        for pid, part in stats["partitions"].items():
+            if int(pid) in pids:
+                out[f"{pid}@{node}"] = dict(part["raft"] or {},
+                                            status=part["status"])
+    return out
+
+
+def wait_process_counts(cl, ps_addrs, want, space="s",
+                        deadline_s=PROCESS_DEADLINE_S) -> tuple[dict, float]:
+    """Poll, under a deadline, until every partition of `space` counts the
+    same docs on 3 replicas and the partitions sum to `want`: the counts
+    and the seconds it took."""
+    t0 = time.monotonic()
+    while True:
+        pids = {p["id"] for p in cl.get_space("db", space)["partitions"]}
+        counts = process_counts(ps_addrs, pids)
+        ok = (set(counts) == {str(p) for p in pids}
+              and all(len(r) == 3 and len(set(r.values())) == 1
+                      for r in counts.values())
+              and sum(next(iter(r.values())) for r in counts.values())
+              == want)
+        if ok or time.monotonic() - t0 > deadline_s:
+            check(ok, f"{space} doc counts {counts}, want {want} on 3 "
+                      f"replicas within {deadline_s} s; raft state "
+                      f"{process_raft(ps_addrs, pids)}")
+            return counts, time.monotonic() - t0
+        time.sleep(0.2)
+
+
+def process_build(cl, ps_addrs, space="s") -> dict:
+    """Every replica builds its own index, at once: the leaders through
+    the router's /index/forcemerge, each follower through its partition
+    server's /ps/index/build (each server is its own process). Seconds,
+    and every replica's engine status after (3: indexed)."""
+    from vearch_tpu_torch.cluster import rpc
+
+    parts = cl.get_space("db", space)["partitions"]
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(8) as pool:
+        futs = [pool.submit(rpc.call, cl.addr, "POST", "/index/forcemerge",
+                            {"db_name": "db", "space_name": space},
+                            timeout=900.0)]
+        futs += [pool.submit(rpc.call, ps_addrs[r], "POST", "/ps/index/build",
+                             {"partition_id": p["id"]}, timeout=900.0)
+                 for p in parts for r in p["replicas"]
+                 if r != p["leader"] and r in ps_addrs]
+        for fut in futs:
+            fut.result()
+    out = {"total_s": time.monotonic() - t0, "status": {}}
+    pids = {p["id"] for p in parts}
+    for node, addr in ps_addrs.items():
+        stats = rpc.call(addr, "GET", "/ps/stats", timeout=30.0)
+        for pid, part in stats["partitions"].items():
+            if int(pid) in pids:
+                out["status"].setdefault(pid, {})[str(node)] = part["status"]
+    check(all(s == 3 for r in out["status"].values() for s in r.values()),
+          f"{space} replicas not indexed after the build: {out['status']}")
+    return out
+
+
+def process_path(cls, queries, params, truth, space="s") -> tuple:
+    """A warm-up, then 3 searches through the routers in turn (router1,
+    router2, router1; the median's ms): recall@10 and the last ids."""
+    router_search(cls[0], queries, params, space=space)
+    times = []
+    for i in range(3):
+        ids, ms = router_search(cls[i % 2], queries, params, space=space)
+        times.append(ms)
+    return {"params": params, "B": len(queries),
+            "search_ms": float(np.median(times)), "all_ms": times,
+            "recall_at_10": cluster_recall(ids, truth)}, ids
+
+
+def phase_processes(dev, base, queries, ref) -> dict:
+    """cloud/smoke_torch.py's topology on the card: 3 masters, 2 routers
+    and 3 partition servers, each `python -m vearch_tpu_torch` in its own
+    process, the servers started without `--device` (each on the card).
+    phase_cluster's space, rows and requests (`ref`: its routed ids,
+    dispatch tags, ingest rate and searches under a writer); ingest
+    through both routers at once; the searches; a search under a writer;
+    kill -9 of partition 0's leader under a writer, every acked id read
+    back; the killed server restarted on its data dir (WAL replay, raft
+    catch-up); kill -9 of the metadata leader; an S3 backup round trip;
+    the doctor in its own process. The kernels' launch counters live in
+    the child processes: the evidence of their paths is each search's
+    dispatch tags on engines whose device is the card."""
+    import threading
+
+    from vearch_tpu_torch.cluster import rpc
+    from vearch_tpu_torch.engine.types import MetricType
+    from vearch_tpu_torch.sdk.client import VearchClient
+
+    smoke = smoke_torch()
+    n, d = PROCESS_ROWS, base.shape[1]
+    rows = base[:n]
+    cats = engine_docs(rows, seed=12)[0]
+    truth = exact_topk(dev, queries, rows, MetricType.L2)
+    same_rows = ref["rows"] == n
+    out, times = {"rows": n, "reduced": REDUCED["processes"],
+                  "card": nvidia_smi()}, {}
+    data_dir = tempfile.mkdtemp(prefix="vearch_chip_procs_")
+    roles = smoke.Roles(os.path.join(data_dir, "logs"))
+    s3 = smoke.MockS3()
+    t_phase = time.monotonic()
+    ok = False
+
+    def step(name):
+        print(f"processes: {name} at {time.monotonic() - t_phase:.1f}s",
+              flush=True)
+
+    try:
+        # the topology; nvidia-smi's contexts before and after each step
+        contexts = {"before": compute_apps()}
+        t0 = time.monotonic()
+        # no --device: each partition server takes the card, or fails the
+        # phase; no --grpc-port: the gRPC front end is host transport,
+        # held on the CPU by cloud/smoke_torch.py's step 3b
+        masters = smoke.start_topology(roles, data_dir, [])
+        times["start"] = time.monotonic() - t0
+        contexts["started"] = compute_apps()
+        out["banner_s"] = dict(roles.banner_s)
+        ps_names = [f"ps{i + 1}" for i in range(3)]
+        node_of = {name: int(roles.banners[name].split()[2].rstrip(":"))
+                   for name in ps_names}
+        ps_addrs = {node_of[name]: roles.addrs[name] for name in ps_names}
+        r1 = VearchClient(roles.addrs["router1"])
+        r2 = VearchClient(roles.addrs["router2"])
+        cls = (r1, r2)
+        r1.create_database("db")
+        r1.create_space("db", cluster_space(d))
+        step("started")
+
+        # ingest through both routers at once, one client thread each
+        def send(cl, lo, hi):
+            for i in range(lo, hi, CLUSTER_BATCH):
+                cl.upsert("db", "s", [{"_id": f"d{j}", "emb": rows[j],
+                                       "cat": int(cats[j])}
+                                      for j in range(i, min(i + CLUSTER_BATCH,
+                                                            hi))])
+
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(2) as pool:
+            for fut in [pool.submit(send, cl, lo, lo + n // 2)
+                        for cl, lo in zip(cls, (0, n // 2))]:
+                fut.result()
+        times["ingest"] = time.monotonic() - t0
+        out["ingest"] = {"docs_per_s": n / times["ingest"],
+                         "in_process_docs_per_s": ref["ingest_docs_per_s"]}
+        out["doc_counts"], _ = wait_process_counts(r1, ps_addrs, n)
+        print("processes_ingest " + json.dumps(out["ingest"]), flush=True)
+        out["build"] = process_build(r1, ps_addrs)
+        times["build"] = out["build"]["total_s"]
+        step("built")
+
+        # every partition server on the card: its /metrics page's live
+        # device bytes under a cuda label, its engines' contexts
+        out["device_bytes"] = {name: ps_device_bytes(roles.addrs[name])
+                               for name in ps_names}
+        for name, by in out["device_bytes"].items():
+            check(any(k.startswith("cuda") and v > 0 for k, v in by.items()),
+                  f"{name} holds no live bytes on the card: {by}")
+        contexts["built"] = compute_apps()
+        out["contexts"] = contexts
+        out["contexts_opened"] = {
+            "masters_routers_ps_started": len(contexts["started"])
+            - len(contexts["before"]),
+            "after_ingest_and_build": len(contexts["built"])
+            - len(contexts["before"])}
+        out["pids"] = {name: p.pid for name, p in roles.procs.items()}
+        print("processes_contexts " + json.dumps(
+            {k: out[k] for k in ("contexts", "contexts_opened", "pids",
+                                 "device_bytes")}), flush=True)
+        check(out["contexts_opened"]["after_ingest_and_build"] >= 3,
+              f"fewer than 3 new contexts on the card: {contexts}")
+
+        # the searches, each beside phase_cluster's ids for the request
+        t0 = time.monotonic()
+        searches, routed = {}, {}
+        for name, params in CLUSTER_REQUESTS.items():
+            res, routed[name] = process_path(cls, queries, params, truth)
+            if same_rows:
+                res["rows_differing_in_process"] = rows_differing(
+                    routed[name], ref["ids"][name])
+            searches[name] = res
+            print(f"processes_search {name} " + json.dumps(res), flush=True)
+        check(searches["full_rerank512"]["recall_at_10"] >= 0.95,
+              "routed recall@10 at rerank 512 "
+              f"{searches['full_rerank512']['recall_at_10']} < 0.95")
+        router_search(r1, queries[:1], CLUSTER_GATED)
+        b1 = [router_search(cls[i % 2], queries[i:i + 1], CLUSTER_GATED)[1]
+              for i in range(CLUSTER_B1)]
+        searches["b1"] = {
+            "params": CLUSTER_GATED, "searches": CLUSTER_B1,
+            "p50_ms": float(np.percentile(b1, 50)),
+            "p99_ms": float(np.percentile(b1, 99))}
+        # the kernels' paths: dispatch tags as phase_cluster's
+        profiles, tags = {}, {}
+        for name in ("full_rerank512", "probe_rerank512"):
+            profiles[name], tags[name] = profiled_tags(
+                r1, queries, CLUSTER_REQUESTS[name])
+            check(tags[name] == ref["tags"][name],
+                  f"{name} dispatched {tags[name]}, in process "
+                  f"{ref['tags'][name]}")
+        searches["profile_rerank512"] = profiles["full_rerank512"]
+        out["dispatch_tags"] = tags
+        out["searches"] = searches
+        print("processes_search b1 " + json.dumps(searches["b1"])
+              + " tags " + json.dumps(tags), flush=True)
+
+        # gated searches through router1 while router2 re-upserts
+        # CLUSTER_WRITES docs (cluster_concurrent_writer's bounded writer)
+        errors: list = []
+        writes = min(CLUSTER_WRITES, n // 500 * 500)
+
+        def rewriter():
+            try:
+                for lo in range(0, writes, 500):
+                    r2.upsert("db", "s", [{"_id": f"d{i}", "emb": rows[i],
+                                           "cat": int(cats[i])}
+                                          for i in range(lo, lo + 500)])
+            except Exception as e:  # reported and failed below
+                errors.append(repr(e))
+
+        w = threading.Thread(target=rewriter, name="process-writer",
+                             daemon=True)
+        t1 = time.monotonic()
+        w.start()
+        wtimes, wrecalls = [], []
+        while w.is_alive() or not wtimes:
+            ids, ms = router_search(r1, queries, CLUSTER_GATED)
+            wtimes.append(ms)
+            wrecalls.append(cluster_recall(ids, truth))
+        w.join(PROCESS_DEADLINE_S)
+        check(not w.is_alive() and not errors,
+              f"the writer failed or hung: {errors}")
+        out["writer"] = {
+            "params": CLUSTER_GATED, "rewritten_docs": writes,
+            "writes_s": time.monotonic() - t1, "searches": len(wtimes),
+            "search_ms": float(np.median(wtimes)), "all_ms": wtimes,
+            "in_process_ms": ref["writer_ms"],
+            "recall_at_10": min(wrecalls)}
+        wait_process_counts(r1, ps_addrs, n)
+        check(out["writer"]["recall_at_10"] >= 0.95,
+              f"recall@10 under a writer {out['writer']['recall_at_10']}")
+        print("processes_writer " + json.dumps(out["writer"]), flush=True)
+        times["searches"] = time.monotonic() - t0
+        step("searched")
+
+        # kill -9 of partition 0's leader while a writer adds new docs,
+        # retrying each batch until it is acked
+        t0 = time.monotonic()
+        part0 = min(r1.get_space("db", "s")["partitions"],
+                    key=lambda p: p["id"])
+        dead = part0["leader"]
+        victim = next(k for k, v in node_of.items() if v == dead)
+        fo = {"partition": part0["id"], "killed": victim,
+              "killed_node": dead,
+              "placement_before": r1.get_space("db", "s")["partitions"]}
+        acked, acks, werr = [], [], []
+        total = n + PROCESS_FAILOVER_WRITES
+
+        def writer():
+            deadline = time.monotonic() + 2 * PROCESS_DEADLINE_S
+            for lo in range(n, total, 500):
+                docs = [{"_id": f"d{j}", "emb": base[j], "cat": j % 100}
+                        for j in range(lo, lo + 500)]
+                while True:
+                    try:
+                        r2.upsert("db", "s", docs)
+                        break
+                    except rpc.RpcError as e:
+                        if time.monotonic() > deadline:
+                            werr.append(repr(e))
+                            return
+                        time.sleep(0.1)
+                acked.extend(dd["_id"] for dd in docs)
+                acks.append(time.monotonic())
+
+        w = threading.Thread(target=writer, name="failover-writer",
+                             daemon=True)
+        w.start()
+        while len(acked) < PROCESS_FAILOVER_WRITES // 5 and w.is_alive():
+            check(time.monotonic() - t0 < PROCESS_DEADLINE_S,
+                  "the failover writer acked nothing")
+            time.sleep(0.05)
+        t_kill = time.monotonic()
+        roles.kill(victim)
+        del ps_addrs[dead]
+        leader = dead
+        while leader in (dead, -1):
+            check(time.monotonic() - t_kill < PROCESS_DEADLINE_S,
+                  f"no new leader for partition {part0['id']}")
+            time.sleep(0.1)
+            leader = next(p for p in r1.get_space("db", "s")["partitions"]
+                          if p["id"] == part0["id"])["leader"]
+        fo["new_leader"] = leader
+        fo["leader_promoted_s"] = time.monotonic() - t_kill
+        while True:
+            try:
+                router_search(r1, queries[:1], CLUSTER_GATED)
+                break
+            except rpc.RpcError:
+                check(time.monotonic() - t_kill < PROCESS_DEADLINE_S,
+                      "no search served after the kill -9")
+                time.sleep(0.1)
+        fo["first_search_served_s"] = time.monotonic() - t_kill
+        w.join(2 * PROCESS_DEADLINE_S)
+        check(not w.is_alive() and not werr,
+              f"the failover writer failed or hung: {werr}")
+        later = [a for a in acks if a > t_kill]
+        fo["first_write_acked_s"] = later[0] - t_kill if later else None
+        fo["acked_writes"] = len(acked)
+        check(len(acked) == PROCESS_FAILOVER_WRITES,
+              f"{len(acked)} of {PROCESS_FAILOVER_WRITES} writes acked")
+        got = set()
+        for lo in range(0, len(acked), 1000):
+            chunk = acked[lo:lo + 1000]
+            got |= {doc["_id"] for doc in r1.query(
+                "db", "s", document_ids=chunk, limit=len(chunk))}
+        fo["acked_missing"] = sorted(set(acked) - got)[:10]
+        check(not fo["acked_missing"],
+              f"ACKED WRITES LOST after kill -9: {fo['acked_missing']}")
+        fo["doc_counts_two_replicas"] = process_counts(
+            ps_addrs, {p["id"] for p in fo["placement_before"]})
+        truth = exact_topk(dev, queries, base[:total], MetricType.L2)
+        time.sleep(1.0)  # the refresh loops absorb the last writes
+        res, ids = process_path(cls, queries, CLUSTER_GATED, truth)
+        fo["search"] = res
+        fo["tags"] = profiled_tags(r1, queries, CLUSTER_GATED)[1]
+        check(res["recall_at_10"] >= 0.95,
+              f"recall@10 after the kill -9 {res['recall_at_10']} < 0.95")
+        check(fo["tags"] == ref["tags"]["full_rerank512"],
+              f"after the kill -9 the full scan dispatched {fo['tags']}")
+        out["failover"] = fo
+        times["failover"] = time.monotonic() - t0
+        print("processes_failover " + json.dumps(fo), flush=True)
+        step("failed over")
+
+        # the killed server again, on its data dir: WAL replay, then the
+        # leaders' catch-up; what the master did with its replicas meanwhile
+        t0 = time.monotonic()
+        wal = {"placement_meanwhile": r1.get_space("db", "s")["partitions"],
+               "servers_meanwhile": sorted(
+                   s["node_id"] for s in rpc.call(masters, "GET",
+                                                  "/servers")["servers"])}
+        roles.restart(victim)
+        wal["banner_s"] = roles.banner_s[victim]
+        wal["first_banner_s"] = out["banner_s"][victim]
+        check(roles.banners[victim].startswith(f"ps node {dead}:"),
+              f"the restarted server is not node {dead}: "
+              f"{roles.banners[victim]}")
+        ps_addrs[dead] = roles.addrs[victim]
+        wal["doc_counts"], wal["catch_up_s"] = wait_process_counts(
+            r1, ps_addrs, total, deadline_s=2 * PROCESS_DEADLINE_S)
+        wal["placement_after"] = r1.get_space("db", "s")["partitions"]
+        # its engines reopen from the last flush and replay the tail, and
+        # come back unindexed (status 1), as a moved replica does: build
+        stats = rpc.call(roles.addrs[victim], "GET", "/ps/stats")
+        wal["restarted_status"] = {pid: p["status"] for pid, p in
+                                   stats["partitions"].items()}
+        t1 = time.monotonic()
+        for pid, status in wal["restarted_status"].items():
+            if status != 3:
+                rpc.call(roles.addrs[victim], "POST", "/ps/index/build",
+                         {"partition_id": int(pid)}, timeout=900.0)
+        wal["rebuild_s"] = time.monotonic() - t1
+        out["wal_restart"] = wal
+        times["wal_restart"] = time.monotonic() - t0
+        print("processes_wal_restart " + json.dumps(wal), flush=True)
+        step("restarted")
+
+        # kill -9 of the metadata leader: both routers keep serving, and a
+        # new leader is elected
+        t0 = time.monotonic()
+        mleader = smoke.meta_leader(roles, masters)
+        check(mleader is not None, "no metadata leader before the kill")
+        roles.kill(mleader)
+        mk = {"killed": mleader, "served": {}}
+        for name, cl in zip(("router1", "router2"), cls):
+            while True:
+                try:
+                    ids, ms = router_search(cl, queries, CLUSTER_GATED)
+                    break
+                except rpc.RpcError:
+                    check(time.monotonic() - t0 < PROCESS_DEADLINE_S,
+                          f"{name} stopped serving after the master kill")
+                    time.sleep(0.1)
+            mk["served"][name] = {"after_s": time.monotonic() - t0,
+                                  "search_ms": ms,
+                                  "recall_at_10": cluster_recall(ids, truth)}
+            check(mk["served"][name]["recall_at_10"] >= 0.95,
+                  f"{name} recall@10 after the master kill")
+        while smoke.meta_leader(roles, masters) in (None, mleader):
+            check(time.monotonic() - t0 < PROCESS_DEADLINE_S,
+                  "no new metadata leader elected")
+            time.sleep(0.1)
+        mk["new_leader"] = smoke.meta_leader(roles, masters)
+        mk["elected_s"] = time.monotonic() - t0
+        out["master_kill"] = mk
+        times["master_kill"] = time.monotonic() - t0
+        print("processes_master_kill " + json.dumps(mk), flush=True)
+        step("master killed")
+
+        # S3: backup version 1, delete every doc, restore, the same ids
+        t0 = time.monotonic()
+        erows, equeries = elastic_data(d, seeds=PROCESS_S3_ROWS)
+        erows = erows[:PROCESS_S3_ROWS]
+        r1.create_space("db", elastic_space(d))  # a mutation: new leader
+        for lo in range(0, PROCESS_S3_ROWS, CLUSTER_BATCH):
+            r1.upsert("db", "e", [{"_id": f"d{j}", "emb": erows[j]}
+                                  for j in range(lo, min(
+                                      lo + CLUSTER_BATCH, PROCESS_S3_ROWS))])
+        wait_process_counts(r1, ps_addrs, PROCESS_S3_ROWS, space="e")
+        s3_out = {"rows": PROCESS_S3_ROWS,
+                  "build": process_build(r1, ps_addrs, space="e")}
+        etruth = exact_topk(dev, equeries, erows, MetricType.L2)
+        before, s3_out["search_ms"] = router_search(r1, equeries,
+                                                    CLUSTER_GATED, space="e")
+        s3_out["recall_at_10"] = cluster_recall(before, etruth)
+        check(s3_out["recall_at_10"] >= 0.95,
+              f"e recall@10 {s3_out['recall_at_10']} < 0.95")
+        spec = {"type": "s3", "endpoint": s3.addr, "bucket": "bk",
+                "access_key": "ak", "secret_key": "sk"}
+        t1 = time.monotonic()
+        res = rpc.call(masters, "POST", "/backup/dbs/db/spaces/e",
+                       {"command": "create", "store": spec}, timeout=600.0)
+        s3_out["backup_s"] = time.monotonic() - t1
+        check(res["version"] == 1, f"backup {res}")
+        s3_out["objects"] = len(s3.objects)
+        s3_out["bytes"] = sum(len(v) for v in s3.objects.values())
+        for lo in range(0, PROCESS_S3_ROWS, CLUSTER_BATCH):
+            r1.delete("db", "e", document_ids=[
+                f"d{j}" for j in range(lo, min(lo + CLUSTER_BATCH,
+                                               PROCESS_S3_ROWS))])
+        wait_process_counts(r1, ps_addrs, 0, space="e")
+        t1 = time.monotonic()
+        res = rpc.call(masters, "POST", "/backup/dbs/db/spaces/e",
+                       {"command": "restore", "store": spec, "version": 1},
+                       timeout=600.0)
+        s3_out["restore_s"] = time.monotonic() - t1
+        check(sum(p["doc_count"] for p in res["partitions"])
+              == PROCESS_S3_ROWS, f"restore {res}")
+        s3_out["doc_counts"], _ = wait_process_counts(
+            r1, ps_addrs, PROCESS_S3_ROWS, space="e")
+        after, _ = router_search(r1, equeries, CLUSTER_GATED, space="e")
+        s3_out["rows_differing"] = rows_differing(after, before)
+        check(after == before, "ids after the restore differ in "
+              f"{s3_out['rows_differing']} rows")
+        out["s3"] = s3_out
+        times["s3"] = time.monotonic() - t0
+        print("processes_s3 " + json.dumps(s3_out), flush=True)
+        step("s3 round trip")
+
+        # the doctor, in its own process, against the masters' list, one
+        # sampler period after the last request
+        time.sleep(PROCESS_QUIET_S)
+        t0 = time.monotonic()
+        doc = subprocess.run(
+            [sys.executable, "-m", "vearch_tpu_torch", "doctor",
+             "--master", masters, "--json"], capture_output=True, text=True,
+            timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+        report = json.loads(doc.stdout)
+        out["doctor"] = {
+            "exit_code": doc.returncode,
+            "checks": {ch["name"]: ch["ok"] for ch in report["checks"]},
+            "violations": [v["name"] for v in report["violations"]],
+            "seconds": time.monotonic() - t0}
+        out["doctor"]["details"] = {v["name"]: v.get("detail")
+                                    for v in report["violations"]}
+        out["doctor"]["hbm_drift_fired"] = (
+            "hbm_drift" in out["doctor"]["violations"])
+        print("processes_doctor " + json.dumps(out["doctor"]), flush=True)
+        unexplained = sorted(set(out["doctor"]["violations"])
+                             - set(DOCTOR_EXPECTED))
+        check(doc.returncode in (0, 1) and not unexplained,
+              f"doctor exit {doc.returncode}: unexplained violations "
+              f"{unexplained}")
+        lint = next(ch for ch in report["checks"]
+                    if ch["name"] == "lint_clean")
+        check(lint["ok"] is True and not lint.get("skipped"),
+              f"doctor lint_clean: {lint}")
+        times["doctor"] = out["doctor"]["seconds"]
+        ok = True
+    finally:
+        t0 = time.monotonic()
+        roles.close()
+        s3.stop()
+        if not ok:
+            print(roles.tails(), flush=True)
+        shutil.rmtree(data_dir, ignore_errors=True)
+        times["stop"] = time.monotonic() - t0
+    out["seconds"] = times
+    return out
+
+
+def phase_cluster(dev, base, queries) -> tuple[dict, dict, tuple, dict]:
     """The port's cluster plane on the card: StandaloneCluster (master,
     router, 3 partition servers, no device argument: the card), driven
     through the port's SDK; then phase_elastic on the same cluster after
-    its failover. Returns phase_elastic's (out, paths) third; its seconds
-    are out["seconds"]["elastic"]."""
+    its failover. Returns phase_elastic's (out, paths) third, its seconds
+    out["seconds"]["elastic"], and fourth what phase_processes compares
+    with: the routed ids of each request, the dispatch tags, the ingest
+    rate and the search times under a writer."""
     from vearch_tpu_torch.cluster.standalone import StandaloneCluster
     from vearch_tpu_torch.engine.types import MetricType
     from vearch_tpu_torch.sdk.client import VearchClient
@@ -3317,6 +3964,9 @@ def phase_cluster(dev, base, queries) -> tuple[dict, dict, tuple]:
                       f"{time.monotonic() - t0:.1f}s", flush=True)
         times["ingest"] = time.monotonic() - t0
         out["ingest_docs_per_s"] = n / times["ingest"]
+        out["reduced"] += (f" ({out['ingest_docs_per_s']:.0f} docs/s in this "
+                           f"run: 1M rows would take "
+                           f"{1e6 / out['ingest_docs_per_s']:.0f} s)")
         counts = cluster_counts(c)
         out["doc_counts"] = counts
         check(len(counts) == 2 and all(len(r) == 3 for r in counts.values()),
@@ -3337,16 +3987,15 @@ def phase_cluster(dev, base, queries) -> tuple[dict, dict, tuple]:
         kernels = {"full_rerank512": "int8_blockmax_scan",
                    "full_rerank128": "int8_blockmax_scan",
                    "probe_rerank512": "ivf_probe_dots"}
-        searches = {}
+        searches, routed = {}, {}
         for name, params in CLUSTER_REQUESTS.items():
-            res, ids = cluster_path(cl, queries, params, truth,
-                                    kernels[name])
+            res, routed[name] = cluster_path(cl, queries, params, truth,
+                                             kernels[name])
             res["engine_alone_ms"] = alone[name]["search_ms"]
             searches[name] = res
             paths[name] = res
-            if name == "full_rerank512":
-                before = ids
             print(f"cluster_search {name} " + json.dumps(res), flush=True)
+        before = routed["full_rerank512"]
         check(searches["full_rerank512"]["recall_at_10"] >= 0.95,
               "cluster recall@10 at rerank 512 "
               f"{searches['full_rerank512']['recall_at_10']} < 0.95")
@@ -3376,15 +4025,17 @@ def phase_cluster(dev, base, queries) -> tuple[dict, dict, tuple]:
         check(searches["b1"]["launches"]["int8_blockmax_scan"] > 0,
               "B=1 searches never launched the block-max kernel")
         # the split of one gated search into router, partition servers
-        # and engines (profile: true), with every engine's rows on the card
-        t1 = time.monotonic()
-        prof = cl.search("db", "s", [{"field": "emb", "feature": queries}],
-                         limit=10, index_params=CLUSTER_GATED, cache=False,
-                         profile=True)
-        prof = dict(prof["profile"],
-                    wall_ms=(time.monotonic() - t1) * 1e3)
+        # and engines (profile: true), with every engine's rows on the
+        # card; the full and probe paths' dispatch tags, which
+        # phase_processes holds its partition servers to
+        prof, tags = profiled_tags(cl, queries, CLUSTER_GATED)
         searches["profile_rerank512"] = prof
         print("cluster_profile " + json.dumps(prof), flush=True)
+        out["dispatch_tags"] = {
+            "full_rerank512": tags,
+            "probe_rerank512": profiled_tags(
+                cl, queries, CLUSTER_REQUESTS["probe_rerank512"])[1]}
+        print("cluster_tags " + json.dumps(out["dispatch_tags"]), flush=True)
         out["searches"] = searches
         # each server's sampler holds the card's process-wide allocated
         # bytes against its own engines' footprint models only
@@ -3416,7 +4067,11 @@ def phase_cluster(dev, base, queries) -> tuple[dict, dict, tuple]:
         release_device_memory()
         times["stop"] = time.monotonic() - t0
     out["seconds"] = times
-    return out, paths, elastic
+    # what phase_processes compares its routed searches with
+    ref = {"rows": n, "ids": routed, "tags": out["dispatch_tags"],
+           "ingest_docs_per_s": out["ingest_docs_per_s"],
+           "writer_ms": cw["search"]["all_ms"]}
+    return out, paths, elastic, ref
 
 
 def profile_search(eng, req, ranges=()) -> dict:
@@ -3642,14 +4297,18 @@ def main() -> int:
     print("storage " + json.dumps(storage), flush=True)
     print(f"phase storage_modes: {time.monotonic() - t0:.1f}s", flush=True)
     t0 = time.monotonic()
-    cluster, cluster_paths, (elastic, elastic_paths) = phase_cluster(
-        dev, base, queries)
+    cluster, cluster_paths, (elastic, elastic_paths), cluster_ref = \
+        phase_cluster(dev, base, queries)
     print("cluster " + json.dumps(cluster), flush=True)
     print("elastic " + json.dumps(elastic), flush=True)
     elastic_s = cluster["seconds"]["elastic"]
     print(f"phase cluster: {time.monotonic() - t0 - elastic_s:.1f}s",
           flush=True)
     print(f"phase elastic: {elastic_s:.1f}s", flush=True)
+    t0 = time.monotonic()
+    processes = phase_processes(dev, base, queries, cluster_ref)
+    print("processes " + json.dumps(processes), flush=True)
+    print(f"phase processes: {time.monotonic() - t0:.1f}s", flush=True)
     footprint_table()
     paths = dict(family, engine=engine_paths, **disk_paths, **runtime_paths,
                  **storage_paths, mesh=mesh_paths, cluster=cluster_paths,

@@ -103,6 +103,32 @@ def _replace(src: str, old: str, new: str) -> str:
 # most APPEND_MAX_BYTES of logged entries, where the reference sends up to
 # 512 entries whatever their size (test_torch_cluster_raft.py shows why)
 STATED_EDITS = {
+    # ps.py's second departure (test_ps_differs_from_reference_only_by_its
+    # _device applies these after the device edits): a partition create
+    # waits until start() has reopened the partitions on disk, so the
+    # master's re-add of a restarting replica cannot write an empty engine
+    # over one of them (tests/test_torch_processes.py)
+    "cluster/ps.py": [
+        ("""        self._stop = threading.Event()
+        # concurrency gate""", """        self._stop = threading.Event()
+        # set once start() has reopened the partitions on disk
+        self._recovered = threading.Event()
+        # concurrency gate"""),
+        ("""            self._recover_partitions()
+        self.device_sampler.start()""", """            self._recover_partitions()
+        self._recovered.set()
+        self.device_sampler.start()"""),
+        ("""    def _h_create_partition(self, body: dict, _parts) -> dict:
+""", """    def _h_create_partition(self, body: dict, _parts) -> dict:
+        if not self._recovered.is_set():
+            # the partitions on this server's disk are not reopened yet:
+            # a create now would dump an empty engine over one of them
+            # (the master's re-add of a returning replica); the master
+            # retries on its next pass
+            raise RpcError(503, "partition server is still reopening its "
+                                "partitions")
+"""),
+    ],
     "cluster/raft.py": [
         ('''followers that fell behind the truncation horizon.
 """''', '''followers that fell behind the truncation horizon.
@@ -217,18 +243,25 @@ def test_copy_equals_reference_after_import_rewrite(path):
 
 
 def test_ps_differs_from_reference_only_by_its_device():
-    """ps.py's departure: an explicit device, resolved once, reaches the
+    """ps.py's departures: an explicit device, resolved once, reaches the
     four engine sites (create, restart reopen, snapshot install,
-    backup restore); the JAX platform env is gone."""
+    backup restore); the JAX platform env is gone; and STATED_EDITS'
+    guard, which refuses a partition create until start() has reopened
+    the partitions on disk."""
     ref = rewrite_imports(_read("vearch_tpu", "cluster", "ps.py"))
     ref = _replace(ref, '''truncates the log behind it (reference: store_raft_job.go:97,40).
 """''', '''truncates the log behind it (reference: store_raft_job.go:97,40).
 
 The port's copy of vearch_tpu/cluster/ps.py: the same server over the
-port's Engine, with one departure. `PSServer(device=None)` resolves the
+port's Engine, with two departures. `PSServer(device=None)` resolves the
 device every engine of the server runs on once, at construction (the
 card unless the caller asks for the CPU; no GPU and no device raises),
-and passes it to each Engine and Engine.open.
+and passes it to each Engine and Engine.open. And a restarting server
+refuses /ps/partition/create (503) until it has reopened the partitions
+on its disk: the reference serves it from registration on, so the
+master's re-add of the returning replica can write an empty engine over
+a partition the server is still reopening, whose raft log then counts
+as applied (seen on the card, where reopening takes seconds).
 """''')
     ref = _replace(ref, '''        admission_queue_limit: int = 0,
     ):
@@ -252,6 +285,8 @@ and passes it to each Engine and Engine.open.
                    "eng = Engine(schema, data_dir=pdir, device=self.device)")
     ref = _replace(ref, "restored = Engine.open(data_dir)",
                    "restored = Engine.open(data_dir, device=self.device)")
+    for old, new in STATED_EDITS["cluster/ps.py"]:
+        ref = _replace(ref, old, new)
     assert _read("vearch_tpu_torch", "cluster", "ps.py") == ref
 
 

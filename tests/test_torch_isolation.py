@@ -6,7 +6,10 @@ router, partition servers) through the port's SDK, and serving
 FLAT_SHARDED and an IVFPQ mesh over virtual shards, and running the
 port's lint over the port's tree as its doctor does, pulls in neither JAX,
 nor anything of vearch_tpu, nor ml_dtypes (the GPU machine has none), and
-its entry points refuse to run on the CPU unless asked to."""
+its entry points refuse to run on the CPU unless asked to. Nor does
+loading the port's cluster smoke (cloud/smoke_torch.py), its quickstart
+(examples/python/quickstart_torch.py) and chip_smoke.py as modules, and
+none of them loads the test suite's modules (`tests.*`)."""
 
 import json
 import os
@@ -124,18 +127,28 @@ mesh_lib.set_virtual_device_count(None)
 doctor.run_checks({"ps": [], "routers": []})
 # the port's lint over the port's tree, as the doctor runs it
 lint_clean = doctor._check_lint_clean()
+# the port's cluster smoke, quickstart and chip smoke, loaded as modules
+import importlib.util, os
+scripts = []
+for rel in ("cloud/smoke_torch.py", "examples/python/quickstart_torch.py",
+            "chip_smoke.py"):
+    spec = importlib.util.spec_from_file_location(
+        "probe_" + os.path.basename(rel)[:-3], os.path.join(os.getcwd(), rel))
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    scripts.append(rel)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "vearch_tpu" or m.startswith("vearch_tpu.")
-             or m == "ml_dtypes" or m.startswith("ml_dtypes."))
+             or m == "ml_dtypes" or m.startswith("ml_dtypes.")
+             or m == "tests" or m.startswith("tests."))
 # the native HNSW graph loads the port's own build, never vearch_tpu's
-import os
 from vearch_tpu_torch.native.hnsw_graph import LIBRARY, HnswGraph
 HnswGraph(8).add([[0.0] * 8])
 ref_pkg = os.path.join(os.getcwd(), "vearch_tpu") + os.sep
 loaded = sorted(getattr(m, "__file__", None) or "" for m in
                 list(sys.modules.values()))
 print(json.dumps({"modules": names, "bad": bad, "refused": refused,
+                  "scripts": scripts,
                   "served": served, "mesh": mesh_tags,
                   "lint_clean": lint_clean[0],
                   "hnsw": LIBRARY.path,
@@ -231,5 +244,8 @@ def test_port_imports_no_jax_and_needs_explicit_cpu():
     assert got["lint_clean"] is True
     assert got["served"] == "d7"
     assert got["from_ref"] == []
+    assert got["scripts"] == ["cloud/smoke_torch.py",
+                              "examples/python/quickstart_torch.py",
+                              "chip_smoke.py"]
     assert got["hnsw"].startswith(
         os.path.join(REPO, "vearch_tpu_torch", "_build") + os.sep)

@@ -11,10 +11,15 @@ periodic flush job checkpoints the engine with its applied index and
 truncates the log behind it (reference: store_raft_job.go:97,40).
 
 The port's copy of vearch_tpu/cluster/ps.py: the same server over the
-port's Engine, with one departure. `PSServer(device=None)` resolves the
+port's Engine, with two departures. `PSServer(device=None)` resolves the
 device every engine of the server runs on once, at construction (the
 card unless the caller asks for the CPU; no GPU and no device raises),
-and passes it to each Engine and Engine.open.
+and passes it to each Engine and Engine.open. And a restarting server
+refuses /ps/partition/create (503) until it has reopened the partitions
+on its disk: the reference serves it from registration on, so the
+master's re-add of the returning replica can write an empty engine over
+a partition the server is still reopening, whose raft log then counts
+as applied (seen on the card, where reopening takes seconds).
 """
 
 from __future__ import annotations
@@ -198,6 +203,8 @@ class PSServer:
         self.flush_interval = flush_interval
         self.raft_tick = raft_tick
         self._stop = threading.Event()
+        # set once start() has reopened the partitions on disk
+        self._recovered = threading.Event()
         # concurrency gate (reference: RequestConcurrentController,
         # search/engine.h:197; rpcx request concurrency, ps/server.go:89)
         self._search_gate = threading.BoundedSemaphore(max_concurrent_searches)
@@ -984,6 +991,7 @@ class PSServer:
         # the serving-compile audit
         with self.flight_recorder.warmup():
             self._recover_partitions()
+        self._recovered.set()
         self.device_sampler.start()
         self._quality.start()
         if self.master_addr:
@@ -1644,6 +1652,13 @@ class PSServer:
         eng.build_observer = on_build_done
 
     def _h_create_partition(self, body: dict, _parts) -> dict:
+        if not self._recovered.is_set():
+            # the partitions on this server's disk are not reopened yet:
+            # a create now would dump an empty engine over one of them
+            # (the master's re-add of a returning replica); the master
+            # retries on its next pass
+            raise RpcError(503, "partition server is still reopening its "
+                                "partitions")
         part = Partition.from_dict(body["partition"])
         pid = part.id
         with self._lock:
