@@ -7,7 +7,7 @@ partition servers — plus an in-process S3 endpoint. It asserts:
   1. replicated writes + search through BOTH routers;
   2. master leader kill -9 -> API keeps serving via the survivors;
   3. S3 backup -> delete-all -> restore round-trip;
-  3b. gRPC search through a router (where grpcio and protoc exist);
+  3b. gRPC search through a router (where grpcio and protobuf exist);
   3c. a live field addition and an online field index;
   4. PS kill -9 -> replicated partition keeps serving reads.
 
@@ -290,7 +290,7 @@ def start_topology(roles: Roles, data_dir: str, ps_args: list[str],
                           "--master-addr", master_list, *ps_args]
            for i in range(3)},
         # only when servable: a router crashes at startup if asked for
-        # gRPC without grpcio/protoc in the image
+        # gRPC without grpcio/protobuf in the image
         **{f"router{i + 1}": ["--role", "router", "--master-addr", master_list,
                               *(["--grpc-port", str(grpc_ports[i])]
                                 if grpc_ports else [])]
@@ -323,20 +323,56 @@ def meta_leader(roles: Roles, master_list: str) -> str | None:
     return None
 
 
-def has_grpc() -> bool:
+def placement(master_list: str, roles: Roles) -> str:
+    """What a failed wait reports: the masters' partitions of every space
+    (leader, replicas, term, promotion watermark) and each live partition
+    server's raft state of the partitions it hosts."""
+    lines = []
     try:
-        import grpc as _grpc  # noqa: F401
-    except ImportError:
-        return False
-    try:
-        return subprocess.run(["protoc", "--version"], capture_output=True,
-                              timeout=30).returncode == 0
-    except OSError:
-        return False
+        for sp in rpc.call(master_list, "GET", "/dbs/db/spaces",
+                           timeout=10.0)["spaces"]:
+            for p in sp.get("partitions", []):
+                lines.append(f"partition {p['id']}: " + ", ".join(
+                    f"{k}={p.get(k)}" for k in ("leader", "replicas", "term",
+                                                "promoted_log")))
+    except RpcError as e:
+        lines.append(f"no placement from the masters: {e}")
+    for name, addr in sorted(roles.addrs.items()):
+        if not name.startswith("ps") or roles.procs[name].poll() is not None:
+            continue
+        try:
+            stats = rpc.call(addr, "GET", "/ps/stats", timeout=10.0)
+        except RpcError as e:
+            lines.append(f"{name}: {e}")
+            continue
+        for pid, part in sorted(stats["partitions"].items()):
+            raft = part.get("raft") or {}
+            lines.append(f"{name} partition {pid}: " + ", ".join(
+                f"{k}={raft.get(k)}" for k in ("node_id", "is_leader", "term",
+                                               "commit", "applied",
+                                               "last_index")))
+    return "; ".join(lines)
+
+
+def grpc_missing() -> list[str]:
+    """Which of grpcio and protobuf this machine lacks. With both, a
+    router serves gRPC, with protoc's generated classes or, without
+    protoc, those of the descriptor set beside cluster/grpc_server.py."""
+    import importlib.util
+
+    def importable(mod):
+        try:
+            return importlib.util.find_spec(mod) is not None
+        except ModuleNotFoundError:  # its parent package is missing
+            return False
+
+    return [name for name, mod in (("grpcio", "grpc"),
+                                   ("protobuf", "google.protobuf"))
+            if not importable(mod)]
 
 
 def main(data_dir: str, device: str | None = None) -> int:
-    grpc_on = has_grpc()
+    grpc_on = not grpc_missing()
     gports = free_ports(2) if grpc_on else None
     roles = Roles(os.path.join(data_dir, "logs"))
     s3 = MockS3()
@@ -409,7 +445,7 @@ def main(data_dir: str, device: str | None = None) -> int:
 
         # 3b. gRPC front door; the service keeps the proto's name
         if not grpc_on:
-            print("smoke 3b SKIP: grpcio/protoc not installed", flush=True)
+            print("smoke 3b SKIP: grpcio/protobuf not installed", flush=True)
         else:
             import grpc as grpclib
 
@@ -460,6 +496,7 @@ def main(data_dir: str, device: str | None = None) -> int:
         # 4. kill -9 one PS; replica_num=2 keeps every partition served
         roles.kill("ps1")
         t0 = time.time()
+        last = None
         while True:
             try:
                 hits = r1.search("db", "s",
@@ -467,10 +504,13 @@ def main(data_dir: str, device: str | None = None) -> int:
                                  limit=1)
                 if hits[0] and hits[0][0]["_id"] == "d11":
                     break
-            except RpcError:
-                pass
+                last = hits
+            except RpcError as e:
+                last = e
             if time.time() - t0 > 90:
-                raise SystemExit("FAIL: search dead after PS kill")
+                raise SystemExit("FAIL: search dead after PS kill; last "
+                                 f"answer {last!r}; "
+                                 f"{placement(master_list, roles)}")
             time.sleep(0.5)
         print("smoke 4 OK: PS killed, replicas keep serving", flush=True)
         print("CLUSTER SMOKE: ALL GREEN", flush=True)

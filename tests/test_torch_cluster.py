@@ -103,6 +103,87 @@ def _replace(src: str, old: str, new: str) -> str:
 # most APPEND_MAX_BYTES of logged entries, where the reference sends up to
 # 512 entries whatever their size (test_torch_cluster_raft.py shows why)
 STATED_EDITS = {
+    # master.py's departure: a replica added to a partition widens the
+    # membership only once the leader runs it, and raises the promotion
+    # watermark to the leader's log then, so a failover before the added
+    # replica caught up cannot promote it past writes committed while it
+    # was out of the group
+    # (tests/test_torch_processes.py::test_readded_replica_is_not_promoted_past_acked_writes)
+    "cluster/master.py": [
+        ('''Route names mirror the reference so SDKs port over directly.
+"""''', '''Route names mirror the reference so SDKs port over directly.
+
+The port's copy of vearch_tpu/cluster/master.py, with one departure: a
+replica added to a partition (a returning replica, an auto-recover
+placement, a manual add) widens the membership only once the leader runs
+it, and raises the partition's promotion watermark to the leader's log
+at that point. The reference widens the membership it records even when
+the leader never heard of it, and keeps the watermark of the last
+promotion, so a failover before the added replica caught up could
+promote it past writes committed while it was out of the group.
+"""'''),
+        ('''        at the previous reconfiguration, so each promotion also records
+        that leader's (last_term, last_index) as `promoted_log` and a
+        later promotion refuses any candidate behind it (see
+        _reconfigure_partition). Below either threshold the partition
+        stays unavailable (leaderless) rather than silently dropping
+        acked data.''', '''        at the previous reconfiguration, so each promotion (and each
+        widening, _add_replica) also records that leader's (last_term,
+        last_index) as `promoted_log` and a later promotion refuses any
+        candidate behind it (see _reconfigure_partition). Below either
+        threshold the partition stays unavailable (leaderless) rather
+        than silently dropping acked data.'''),
+        ('''        p["replicas"] = members
+        p["term"] = new_term
+        ok = True
+        for r in members:
+            srv = servers.get(r)
+            if srv is None:
+                continue
+            path = "/ps/raft/lead" if r == p["leader"] else "/ps/raft/members"
+            try:
+                rpc.call(srv.rpc_addr, "POST", path,
+                         {"pid": p["id"], "term": new_term,
+                          "members": members, "leader": p["leader"]})
+            except RpcError:
+                ok = ok and r != p["leader"]
+''', '''        # the leader first: the widening stands only once the leader runs
+        # it, and the leader's log then is the promotion watermark (same
+        # contract as _reconfigure_partition): entries committed under the
+        # narrower membership may live only there until the added replica
+        # catches up, so a failover before then must not promote it
+        decree = {"pid": p["id"], "term": new_term, "members": members,
+                  "leader": p["leader"]}
+        leader = servers.get(p["leader"])
+        if leader is None:
+            return False
+        try:
+            st = rpc.call(leader.rpc_addr, "POST", "/ps/raft/lead", decree)
+        except RpcError:
+            return False
+        pos = [int(st["last_term"]), int(st["last_index"])]
+        floor = p.get("promoted_log")
+        if floor is None or pos > [int(floor[0]), int(floor[1])]:
+            p["promoted_log"] = pos
+        p["replicas"] = members
+        p["term"] = new_term
+        for r in members:
+            srv = servers.get(r)
+            if srv is None or r == p["leader"]:
+                continue
+            try:
+                rpc.call(srv.rpc_addr, "POST", "/ps/raft/members", decree)
+            except RpcError:
+                pass
+'''),
+        ('''            self.store.put(f"{PREFIX_SERVER}{target.node_id}",
+                           target.to_dict())
+        return ok
+''', '''            self.store.put(f"{PREFIX_SERVER}{target.node_id}",
+                           target.to_dict())
+        return True
+'''),
+    ],
     # ps.py's second departure (test_ps_differs_from_reference_only_by_its
     # _device applies these after the device edits): a partition create
     # waits until start() has reopened the partitions on disk, so the
@@ -586,15 +667,73 @@ def test_launcher_operator_verbs_are_not_ported_yet(verb, capsys):
     assert "usage:" in capsys.readouterr().out
 
 
+# grpc_server.py's departure: without protoc, the message classes come
+# from the descriptor set committed beside the module
+# (tests/test_torch_operator.py holds it equal to protoc's)
+GRPC_EDITS = [
+    ('sha256 (same no-stale-binary discipline as vearch_tpu_torch/native)."""',
+     '''sha256 (same no-stale-binary discipline as vearch_tpu_torch/native).
+
+The port's departure: where protoc is missing, the message classes are
+built from `vearch_proto.desc` beside this module, the descriptor set
+protoc writes for api/vearch.proto (`protoc -Iapi
+--descriptor_set_out=vearch_tpu_torch/cluster/vearch_proto.desc
+api/vearch.proto`; tests/test_torch_operator.py holds it equal to
+protoc's), so a router serves gRPC on a machine with grpcio and protobuf
+but no protoc."""'''),
+    ("import os\nimport subprocess\n",
+     "import os\nimport shutil\nimport subprocess\n"),
+    ('''    os.path.dirname(os.path.abspath(__file__)), ".proto_cache"
+)
+''', '''    os.path.dirname(os.path.abspath(__file__)), ".proto_cache"
+)
+_DESCRIPTOR_SET = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "vearch_proto.desc"
+)
+'''),
+    ("        if stale:\n",
+     '''        if stale and shutil.which("protoc") is None:
+            _pb2_mod = pb2_from_descriptor_set()
+            return _pb2_mod
+        if stale:
+'''),
+    ("# RpcError HTTP codes -> canonical gRPC status codes\n",
+     '''def pb2_from_descriptor_set(path: str = _DESCRIPTOR_SET):
+    """A module holding api/vearch.proto's message classes, built from the
+    descriptor set at `path` in a pool of its own (no protoc)."""
+    import types
+
+    from google.protobuf import descriptor_pb2, descriptor_pool, message_factory
+
+    with open(path, "rb") as f:
+        fds = descriptor_pb2.FileDescriptorSet.FromString(f.read())
+    pool = descriptor_pool.DescriptorPool()
+    for fd in fds.file:
+        pool.Add(fd)
+    mod = types.ModuleType("vearch_pb2")
+    mod.DESCRIPTOR = pool.FindFileByName("vearch.proto")
+    for name, desc in mod.DESCRIPTOR.message_types_by_name.items():
+        setattr(mod, name, message_factory.GetMessageClass(desc))
+    return mod
+
+
+# RpcError HTTP codes -> canonical gRPC status codes
+'''),
+]
+
+
 def test_router_grpc_front_end_is_not_ported_yet():
     """The gRPC front end is ported now: the reference's module with its
     imports rewritten, the service keeping the proto's package name
     (`vearch_tpu.Router`, api/vearch.proto), so either package's clients
-    reach either router (tests/test_torch_operator.py serves it)."""
+    reach either router (tests/test_torch_operator.py serves it), and
+    GRPC_EDITS."""
     ref = rewrite_imports(_read("vearch_tpu", "cluster", "grpc_server.py"))
     ref = _replace(ref, '"vearch_tpu_torch.Router"', '"vearch_tpu.Router"')
     ref = _replace(ref, "discipline as vearch_tpu/native)",
                    "discipline as vearch_tpu_torch/native)")
+    for old, new in GRPC_EDITS:
+        ref = _replace(ref, old, new)
     assert _read("vearch_tpu_torch", "cluster", "grpc_server.py") == ref
 
 

@@ -131,3 +131,77 @@ def test_cluster_searches_launch_both_kernels():
         _same_ties_aside(got[name], want[name])
     for row in got["filtered"][0]:
         assert all(int(k[1:]) % 10 < 4 for k in row)
+
+
+@pytest.mark.cuda
+def test_ps_on_card_holds_drift_against_its_cublas_workspaces():
+    """A partition server on the card searched from 8 client threads (its
+    filtered searches run on the HTTP handler threads, each of which then
+    holds a cuBLAS workspace) while a writer upserts: one sampler period
+    after the last request its sampler, holding the card's bytes against
+    the engines' models and the workspaces it counted, reports no drift,
+    and drift_bytes stays under the slack."""
+    _need_cuda()
+    import threading
+    import time
+
+    from vearch_tpu_torch.cluster import rpc
+    from vearch_tpu_torch.cluster.standalone import StandaloneCluster
+    from vearch_tpu_torch.sdk.client import VearchClient
+
+    docs, q = _docs()
+    flt = {"operator": "AND", "conditions": [
+        {"field": "cat", "operator": "<", "value": 4}]}
+    full = {"rerank": 512, "topk_mode": "blockmax"}
+    c = StandaloneCluster(n_ps=1, ps_kwargs=dict(
+        heartbeat_interval=0.3, device_sample_interval=1.0))
+    c.start()
+    try:
+        cl = VearchClient(c.router_addr)
+        cl.create_database("db")
+        cl.create_space("db", dict(SPACE, replica_num=1))
+        for i in range(0, N, 1024):
+            cl.upsert("db", "s", docs[i:i + 1024])
+        ps = c.ps_nodes[0]
+        for pid in list(ps.engines):
+            rpc.call(ps.addr, "POST", "/ps/index/build",
+                     {"partition_id": pid}, timeout=300.0)
+        errors = []
+
+        def client(i):
+            try:
+                own = VearchClient(c.router_addr)
+                for _ in range(3):
+                    _search(own, q, full, filters=flt)
+                    _search(own, q[i:i + 1], full)
+            except Exception as e:  # reported below
+                errors.append(e)
+
+        def writer():
+            try:
+                own = VearchClient(c.router_addr)
+                for i in range(0, 1024, 128):
+                    own.upsert("db", "s", docs[i:i + 128])
+            except Exception as e:  # reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(8)] + [threading.Thread(target=writer)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        assert not errors, errors[:3]
+        samples = ps.device_sampler.snapshot()["samples"]
+        time.sleep(1.5 * ps.device_sampler.interval_s)  # one period
+        st = ps.device_sampler.snapshot()
+        assert st["samples"] > samples
+        (lbl, measured), = st["devices"].items()
+        assert lbl.startswith("cuda") and measured > 0
+        assert st["blas_workspace_bytes"][lbl] > 0
+        slack = (ps.device_sampler.drift_slack_bytes
+                 + ps.device_sampler.drift_tolerance
+                 * st["model_per_device_bytes"])
+        assert not st["drift"] and st["drift_bytes"] < slack, st
+    finally:
+        c.stop()

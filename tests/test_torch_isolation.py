@@ -3,8 +3,9 @@ serving a bf16 disk store under DISKANN, and serving an int4-mirror and
 an OPQ IVFPQ index under the runtime layer (accountant, flight recorder,
 quality monitor, device sampler), serving a CPU cluster (master,
 router, partition servers) through the port's SDK, and serving
-FLAT_SHARDED and an IVFPQ mesh over virtual shards, and running the
-port's lint over the port's tree as its doctor does, pulls in neither JAX,
+FLAT_SHARDED and an IVFPQ mesh over virtual shards, serving a LangChain
+and a LlamaIndex store through the port's framework integrations, and
+running the port's lint over the port's tree as its doctor does, pulls in neither JAX,
 nor anything of vearch_tpu, nor ml_dtypes (the GPU machine has none), and
 its entry points refuse to run on the CPU unless asked to. Nor does
 loading the port's cluster smoke (cloud/smoke_torch.py), its quickstart
@@ -99,6 +100,24 @@ try:
     cl.upsert("db", "s", [{"_id": f"d{i}", "v": vecs[i]} for i in range(20)])
     served = cl.search("db", "s", [{"field": "v", "feature": vecs[7]}],
                        limit=1)[0][0]["_id"]
+    # the framework integrations over the port's SDK: a LangChain store
+    # and a LlamaIndex store, each created twice (the second on the
+    # space that exists)
+    from vearch_tpu_torch.sdk.integrations.langchain_vearch_tpu import (
+        VearchTpuVectorStore)
+    from vearch_tpu_torch.sdk.integrations.llamaindex_vearch_tpu import (
+        TextNode, VearchTpuLlamaVectorStore, VectorStoreQuery)
+    embed = lambda texts: [[float(len(t)), 1.0] * 4 for t in texts]
+    VearchTpuVectorStore(cl, "lc", "s", embed).add_texts(
+        ["a", "bbb"], ids=["a", "bbb"])
+    lc_hit = VearchTpuVectorStore(cl, "lc", "s", embed).similarity_search(
+        "ccc", k=1)[0].metadata["_id"]
+    VearchTpuLlamaVectorStore(cl, "li", "s", dimension=8).add(
+        [TextNode(text="n", id_="n0", embedding=vecs[3].tolist())])
+    li_hit = VearchTpuLlamaVectorStore(cl, "li", "s", dimension=8).query(
+        VectorStoreQuery(query_embedding=vecs[3].tolist(),
+                         similarity_top_k=1)).ids[0]
+    served_integrations = [lc_hit, li_hit]
 finally:
     cluster.stop()
 # the mesh layer: FLAT_SHARDED and IVFPQ over four virtual CPU shards,
@@ -150,6 +169,7 @@ loaded = sorted(getattr(m, "__file__", None) or "" for m in
 print(json.dumps({"modules": names, "bad": bad, "refused": refused,
                   "scripts": scripts,
                   "served": served, "mesh": mesh_tags,
+                  "integrations": served_integrations,
                   "lint_clean": lint_clean[0],
                   "hnsw": LIBRARY.path,
                   "from_ref": [f for f in loaded if f.startswith(ref_pkg)]}))
@@ -199,6 +219,9 @@ def test_port_imports_no_jax_and_needs_explicit_cpu():
                 "vearch_tpu_torch.utils", "vearch_tpu_torch.utils.log",
                 "vearch_tpu_torch.tools.lockcheck",
                 "vearch_tpu_torch.sdk.client", "vearch_tpu_torch.sdk.objects",
+                "vearch_tpu_torch.sdk.integrations",
+                "vearch_tpu_torch.sdk.integrations.langchain_vearch_tpu",
+                "vearch_tpu_torch.sdk.integrations.llamaindex_vearch_tpu",
                 "vearch_tpu_torch.cluster.admission",
                 "vearch_tpu_torch.cluster.auth",
                 "vearch_tpu_torch.cluster.config",
@@ -243,6 +266,7 @@ def test_port_imports_no_jax_and_needs_explicit_cpu():
     assert got["refused"] is True
     assert got["lint_clean"] is True
     assert got["served"] == "d7"
+    assert got["integrations"] == ["bbb", "n0"]
     assert got["from_ref"] == []
     assert got["scripts"] == ["cloud/smoke_torch.py",
                               "examples/python/quickstart_torch.py",

@@ -218,6 +218,79 @@ def test_grpc_front_end_matches_reference_and_http(tmp_path):
     assert all(f["color"] == "red" for _i, _s, f in port["searches"][2][0])
 
 
+def test_grpc_descriptor_set_is_protocs(tmp_path):
+    """vearch_tpu_torch/cluster/vearch_proto.desc is what protoc writes
+    for api/vearch.proto, and the classes built from it serialize each
+    message as protoc's generated ones do."""
+    import shutil
+
+    from vearch_tpu_torch.cluster import grpc_server
+
+    if shutil.which("protoc") is None:
+        pytest.skip("no protoc on this machine to hold the file against")
+    out = tmp_path / "vearch.desc"
+    subprocess.run(["protoc", f"-I{os.path.join(REPO, 'api')}",
+                    f"--descriptor_set_out={out}",
+                    os.path.join(REPO, "api", "vearch.proto")], check=True,
+                   capture_output=True, timeout=60)
+    with open(os.path.join(REPO, "vearch_tpu_torch", "cluster",
+                           "vearch_proto.desc"), "rb") as f:
+        assert f.read() == out.read_bytes()
+    built, generated = grpc_server.pb2_from_descriptor_set(), \
+        grpc_server.load_pb2()
+    for name in generated.DESCRIPTOR.message_types_by_name:
+        assert name in built.DESCRIPTOR.message_types_by_name
+    req = dict(db_name="g", space_name="sp", limit=3, trace=True,
+               index_params_json='{"rerank": 16}')
+    feats = [0.5, -1.25, 3.0]
+    a = built.SearchRequest(vectors=[built.VectorQuery(
+        field="emb", feature=feats, min_score=0.1)], **req)
+    b = generated.SearchRequest(vectors=[generated.VectorQuery(
+        field="emb", feature=feats, min_score=0.1)], **req)
+    assert a.SerializeToString() == b.SerializeToString()
+    back = generated.SearchRequest.FromString(a.SerializeToString())
+    assert back.vectors[0].HasField("min_score") and back.limit == 3
+
+
+def test_grpc_front_end_without_protoc(tmp_path, monkeypatch):
+    """On a machine without protoc the router's message classes come from
+    the descriptor set, and the gRPC session answers as with protoc's
+    generated classes."""
+    grpc = pytest.importorskip("grpc")
+    import shutil
+
+    from vearch_tpu_torch.cluster import grpc_server
+
+    vecs = np.random.default_rng(5).standard_normal((50, D)).astype(
+        np.float32)
+    answers = {}
+    for name in ("protoc", "descriptor_set"):
+        if name == "descriptor_set":
+            which = shutil.which
+            monkeypatch.setattr(grpc_server, "_pb2_mod", None)
+            # no generated module cached either
+            monkeypatch.setattr(grpc_server, "_GEN_DIR", str(tmp_path / "gen"))
+            monkeypatch.setattr(
+                grpc_server.shutil, "which",
+                lambda cmd: None if cmd == "protoc" else which(cmd))
+        pb2 = grpc_server.load_pb2()
+        c = StandaloneCluster(data_dir=str(tmp_path / name), n_ps=1,
+                              ps_kwargs=PS_KW,
+                              router_kwargs={"grpc_port": 0})
+        c.start()
+        try:
+            _space(VearchClient(c.router_addr))
+            answers[name] = _grpc_session(grpc, c.router.grpc.addr, pb2,
+                                          vecs)
+        finally:
+            c.stop()
+        # protoc's classes live in a generated file, the others in none
+        assert (getattr(pb2, "__file__", None) is None) is (
+            name == "descriptor_set")
+    assert answers["protoc"] == answers["descriptor_set"]
+    assert answers["descriptor_set"]["upserted"] == 50
+
+
 def test_grpc_port_without_grpcio_raises(monkeypatch):
     """A router asked for a gRPC port raises when grpcio is missing, as
     the reference's does: it never serves HTTP alone instead."""

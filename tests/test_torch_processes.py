@@ -7,9 +7,14 @@ cpu`, an in-process port master and router) and once with the
 reference's (`python -m vearch_tpu --role ps` under JAX_PLATFORMS=cpu,
 its in-process master and router). Each side asserts what the reference
 test asserts, and the two sides' final top hits and recovered doc sets
-must be equal. A partition server restarted on its data dir refuses a
+must be equal. The master's lease TTL spans three of the children's
+heartbeat periods (at one, a live server's lease lapses on a loaded
+host). A partition server restarted on its data dir refuses a
 partition create until it has reopened its partitions, where the
-reference's loses them. Then cloud/smoke_torch.py, the port's cluster profile
+reference's loses them. A replica re-added to its group after its lease
+lapsed is not promoted past the writes the leader acked alone (the
+reference promotes it and loses them), and is promoted once it caught
+up. Then cloud/smoke_torch.py, the port's cluster profile
 (3 masters, 2 routers, 3 partition servers as subprocesses), must print
 its all-green line.
 
@@ -30,6 +35,13 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 D = 8
 DEADLINE_S = 30.0  # the reference test's failover and replay deadlines
+# a `--role ps` process heartbeats every 2 s (PSServer's default, in both
+# packages), and each heartbeat renews its lease. The master's lease TTL
+# spans three of them, so only a server that stopped heartbeating is
+# failed over: at one period (the reference test's 2.0 s) a live server's
+# lease lapses whenever one heartbeat is late, as on a loaded host
+HEARTBEAT_S = 2.0
+LEASE_TTL_S = 3 * HEARTBEAT_S
 
 
 def _smoke_module():
@@ -120,7 +132,7 @@ def _kill9_leader(kind, tmp_path) -> dict:
     against the promoted follower and every acked write survives."""
     vecs = np.random.default_rng(1234).standard_normal((60, D)).astype(
         np.float32)
-    with _Cluster(kind, tmp_path, heartbeat_ttl=2.0,
+    with _Cluster(kind, tmp_path, heartbeat_ttl=LEASE_TTL_S,
                   recover_delay=3600.0) as c:
         rpc = c.pkg["rpc"]
         nids = {c.spawn_ps("ps0"): "ps0", c.spawn_ps("ps1"): "ps1"}
@@ -134,6 +146,12 @@ def _kill9_leader(kind, tmp_path) -> dict:
             acked.append(f"d{i}")
         c.roles.kill(nids[leader])
         deadline = time.monotonic() + DEADLINE_S
+        # the writes resume on the master's failover: wait until it names
+        # the partition's new leader (one lease TTL after the kill)
+        while cl.get_space("db", "s")["partitions"][0]["leader"] == leader:
+            assert time.monotonic() < deadline, \
+                "no new leader after kill -9 failover"
+            time.sleep(0.2)
         post_ok = False
         while time.monotonic() < deadline:
             try:
@@ -154,13 +172,24 @@ def _kill9_leader(kind, tmp_path) -> dict:
         return {"docs": sorted(got), "top": hits[0][0]["_id"]}
 
 
+@pytest.mark.parametrize("kind", ["port", "reference"])
+def test_lease_ttl_spans_the_heartbeat(kind):
+    """LEASE_TTL_S follows the partition servers' heartbeat: it is three
+    of each package's PSServer heartbeat periods."""
+    import inspect
+
+    ps = _inproc(kind)["ps"]
+    beat = inspect.signature(ps).parameters["heartbeat_interval"].default
+    assert beat == HEARTBEAT_S and LEASE_TTL_S == 3 * beat
+
+
 def _kill9_restart(kind, tmp_path) -> dict:
     """SIGKILL a single-replica PS, restart it on the same data dir: the
     WAL replays every acked write."""
     vecs = np.random.default_rng(1234).standard_normal((40, D)).astype(
         np.float32)
     ids = [f"d{i}" for i in range(40)]
-    with _Cluster(kind, tmp_path, heartbeat_ttl=2.0) as c:
+    with _Cluster(kind, tmp_path, heartbeat_ttl=LEASE_TTL_S) as c:
         rpc = c.pkg["rpc"]
         nid = c.spawn_ps("ps0")
         cl = c.client()
@@ -280,6 +309,168 @@ def test_partition_create_waits_for_the_reopen(kind, tmp_path):
         assert err.value.code == 409
     finally:
         ps.stop()
+
+
+def _inproc(kind):
+    """One package's master, PS, router, client and RpcError classes, and
+    the PS keyword arguments (the port's servers on the CPU)."""
+    pkg = _package(kind)
+    if kind == "port":
+        from vearch_tpu_torch.cluster.ps import PSServer
+
+        return dict(pkg, ps=PSServer, ps_kw={"device": "cpu"})
+    from vearch_tpu.cluster.ps import PSServer
+
+    return dict(pkg, ps=PSServer, ps_kw={})
+
+
+def _on_own_thread(fn, *args) -> None:
+    """Run one pass of the master on a thread of its own, as its reaper
+    and recover loops do: a new thread holds no pooled keep-alive
+    connection, so a stopped server is unreachable to it, as a killed
+    one is."""
+    import threading
+
+    errors = []
+
+    def run():
+        try:
+            fn(*args)
+        except BaseException as e:  # re-raised on the test's thread
+            errors.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(DEADLINE_S)
+    assert not t.is_alive(), f"{fn} hung"
+    if errors:
+        raise errors[0]
+
+
+def _recover_pass(master) -> None:
+    """One pass of the master's recover loop."""
+    with master._reconfig_lock:
+        master._auto_recover_once()
+
+
+def _readd_then_failover(kind, tmp_path, mode: str) -> dict:
+    """A follower F drops out of a 2-replica group (its lease lapsed: a
+    heartbeat late on a loaded host) while the leader L acks writes
+    alone; F returns and the master re-adds it; then L is lost and fails
+    over. `mode`: "caught_up", F replayed L's log before L was lost;
+    "deaf", F heard nothing from L after the re-add (its appends lost);
+    "dead", L was gone before the re-add (killed right after its last
+    ack, its lease not yet lapsed). The master's lease reaper and recover
+    loop are driven by hand (`_failover_node`, `_auto_recover_once`), as
+    they run when a lease lapses and on the next pass. What the master
+    decreed, and which acked docs F's engine holds."""
+    pkg = _inproc(kind)
+    rpc_error = pkg["rpc"].RpcError
+    vecs = np.random.default_rng(7).standard_normal((20, D)).astype(
+        np.float32)
+    ids = [f"d{i}" for i in range(20)]
+    master = pkg["master"](heartbeat_ttl=3600.0, recover_delay=3600.0,
+                           auto_recover=False)
+    master.start()
+    servers, stopped, router = [], [], None
+    try:
+        for i in range(2):
+            ps = pkg["ps"](data_dir=str(tmp_path / f"ps{i}"),
+                           master_addr=master.addr, heartbeat_interval=0.3,
+                           **pkg["ps_kw"])
+            ps.start()
+            servers.append(ps)
+        router = pkg["router"](master_addr=master.addr)
+        router.start()
+        cl = pkg["client"](router.addr)
+        cl.create_database("db")
+        cl.create_space("db", _space(2))
+        part = cl.get_space("db", "s")["partitions"][0]
+        pid = part["id"]
+        lead = next(ps for ps in servers if ps.node_id == part["leader"])
+        fol = next(ps for ps in servers if ps is not lead)
+
+        def partition():
+            return next(p for sp in master.store.prefix("/space/").values()
+                        for p in sp["partitions"] if p["id"] == pid)
+
+        for i in range(10):
+            cl.upsert("db", "s", [{"_id": ids[i], "v": vecs[i]}])
+        _on_own_thread(master._failover_node, fol.node_id)
+        out = {"dropped": partition()["replicas"] == [lead.node_id]}
+        for i in range(10, 20):  # acked by L alone
+            cl.upsert("db", "s", [{"_id": ids[i], "v": vecs[i]}])
+        node = fol.raft_nodes[pid]
+        if mode == "deaf":
+            def unreachable(_body):
+                raise rpc_error(503, "F hears nothing from L")
+
+            node.handle_append = unreachable
+            node.handle_install_snapshot = unreachable
+        elif mode == "dead":
+            lead.stop()
+            stopped.append(lead)
+        _on_own_thread(_recover_pass, master)  # F returns: re-added
+        out["readded"] = sorted(partition()["replicas"]) == sorted(
+            ps.node_id for ps in servers)
+        if mode == "caught_up":
+            deadline = time.monotonic() + DEADLINE_S
+            while node.state()["last_index"] < \
+                    lead.raft_nodes[pid].state()["last_index"]:
+                assert time.monotonic() < deadline, "F did not catch up"
+                time.sleep(0.05)
+        _on_own_thread(master._failover_node, lead.node_id)  # L is lost
+        out["promoted"] = partition()["leader"] == fol.node_id
+        held = fol._h_query({"partition_id": pid, "document_ids": ids},
+                            None)["documents"]
+        out["held"] = sorted(d["_id"] for d in held)
+        return out
+    finally:
+        if router is not None:
+            router.stop()
+        for ps in servers:
+            if ps not in stopped:
+                ps.stop()
+        master.stop()
+
+
+FIRST_TEN = sorted(f"d{i}" for i in range(10))
+ALL_TWENTY = sorted(f"d{i}" for i in range(20))
+
+
+@pytest.mark.parametrize("kind", ["port", "reference"])
+@pytest.mark.parametrize("mode", ["deaf", "dead"])
+def test_readded_replica_is_not_promoted_past_acked_writes(mode, kind,
+                                                           tmp_path):
+    """The kill -9 case's failure under load: the follower's lease lapsed
+    (the master's TTL is one heartbeat period there), so the master
+    dropped it while the leader acked writes alone, re-added the
+    returning follower, and the leader died before the follower caught
+    up ("deaf") or before the re-add ("dead"). The reference promotes the
+    follower, and the writes the leader acked alone are gone from the new
+    leader. The port widens a membership only once the leader runs it and
+    raises the promotion watermark to the leader's log then, so it
+    refuses (the partition waits for the leader's durable log): its
+    stated departure, tests/test_torch_cluster.py
+    STATED_EDITS["cluster/master.py"]."""
+    got = _readd_then_failover(kind, tmp_path, mode)
+    assert got["dropped"]
+    assert got["held"] == FIRST_TEN
+    if kind == "reference":
+        assert got["readded"] and got["promoted"]
+    else:
+        assert got["readded"] is (mode == "deaf")
+        assert not got["promoted"]
+
+
+@pytest.mark.parametrize("kind", ["port", "reference"])
+def test_readded_replica_caught_up_is_promoted(kind, tmp_path):
+    """Once the re-added follower has replayed the leader's log, the
+    watermark holds it back no more: both packages promote it, and it
+    holds every acked doc."""
+    got = _readd_then_failover(kind, tmp_path, "caught_up")
+    assert got == {"dropped": True, "readded": True, "promoted": True,
+                   "held": ALL_TWENTY}
 
 
 def test_cloud_smoke_torch_is_all_green():

@@ -796,3 +796,128 @@ def test_scheduler_charges_concurrent_callers_in_two_spaces():
     assert eng._microbatcher.stats()["dispatch_rows"] >= 32
     acct.ACCOUNTANT.reset()
     eng.close()
+
+
+def test_blas_workspaces_are_the_peak_of_live_noted_threads(monkeypatch):
+    """perf_model.note_blas_thread counts each thread once per card (after
+    priming its cuBLAS handle, stubbed here), and blas_workspace_bytes is
+    the peak number of noted threads alive at once times one workspace:
+    a thread that ends gives its handle and workspace to the next. Not a
+    CUDA device: nothing is counted."""
+    import types
+
+    primed = []
+    monkeypatch.setattr(perf_model, "_prime_blas", primed.append)
+    monkeypatch.setattr(perf_model, "cublas_workspace_size",
+                        lambda device: 1000)
+    dev = types.SimpleNamespace(type="cuda", index=91)  # no other test's
+    go, hold = threading.Barrier(4), threading.Event()
+
+    def worker():
+        perf_model.note_blas_thread(dev)
+        perf_model.note_blas_thread(dev)  # once per thread
+        go.wait(10)
+        hold.wait(10)
+
+    first = [threading.Thread(target=worker) for _ in range(3)]
+    for t in first:
+        t.start()
+    go.wait(10)
+    assert perf_model.blas_workspace_bytes(dev) == 3000
+    hold.set()
+    for t in first:
+        t.join(10)
+    hold.clear()
+    later = [threading.Thread(target=worker) for _ in range(2)]
+    go = threading.Barrier(3)
+    for t in later:
+        t.start()
+    go.wait(10)
+    hold.set()
+    for t in later:
+        t.join(10)
+    assert perf_model.blas_workspace_bytes(dev) == 3000
+    assert len(primed) == 5
+    perf_model.note_blas_thread(torch.device("cpu"))
+    assert perf_model.blas_workspace_bytes(torch.device("cpu")) == 0
+    assert len(primed) == 5
+
+
+def test_cublas_workspace_size_reads_the_config(monkeypatch):
+    """CUBLAS_WORKSPACE_CONFIG's `:SIZE_KiB:COUNT` pairs, summed, as
+    PyTorch sizes a workspace when the variable is set."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    assert perf_model.cublas_workspace_size(None) == 32 << 20
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:2:16:8")
+    assert perf_model.cublas_workspace_size(None) == (8 << 20) + (128 << 10)
+
+
+def test_sampler_holds_drift_against_blas_workspaces(monkeypatch):
+    """The port's departure: on each card the measurement is held against
+    the engines' model plus the cuBLAS workspaces of the threads that ran
+    the port's device work, reported beside it."""
+    values = {"cuda:0": 5000}
+    blas = {"cuda:0": 0}
+    monkeypatch.setattr(sampler, "measure_live_bytes", lambda: dict(values))
+    monkeypatch.setattr(perf_model, "blas_workspace_bytes",
+                        lambda device: blas[str(device)])
+    s = sampler.DeviceSampler(lambda: 1000, drift_slack_bytes=100,
+                              drift_tolerance=0.5)
+    assert s.sample_now()["baseline_per_device_bytes"] == {"cuda:0": 4000}
+    values["cuda:0"] += 3 * 1000  # three workspaces past the model
+    snap = s.sample_now()
+    assert snap["drift"] and snap["drift_bytes"] == 3000
+    blas["cuda:0"] = 3 * 1000
+    snap = s.sample_now()
+    assert not snap["drift"] and snap["drift_bytes"] == 0
+    assert snap["blas_workspace_bytes"] == {"cuda:0": 3000}
+
+
+def test_census_counts_only_the_workspaces_the_clear_frees():
+    """chip_smoke.census_cleared reads what clearing the cuBLAS workspaces
+    freed from two allocator snapshots, block by block: freed blocks
+    requested at one workspace's size are the workspaces, counted at that
+    size even where the allocator handed out a larger cached block whole
+    (the rest reported as rounding); a block the server's own threads
+    free or allocate in the same moment (a refresh loop absorbing the
+    last writes) is named apart and not counted, and a block freed and
+    another allocated at its address by another stack are two blocks."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))))
+    import chip_smoke
+
+    ws = 32 << 20
+    whole = ws + 310_784  # a cached block the allocator did not split
+
+    def block(address, size, line, state="active_allocated", requested=None):
+        return {"address": address, "size": size, "state": state,
+                "requested_size": size if requested is None else requested,
+                "frames": [{"filename": "/x/vearch_tpu_torch/ops/a.py",
+                            "line": line, "name": "f"},
+                           {"filename": "/usr/lib/threading.py",
+                            "line": 1, "name": "run"}]}
+
+    before = {"segments": [{"blocks": [
+        block(0, ws, 367), block(ws, ws, 367), block(2 * ws, ws, 872),
+        block(3 * ws, 666624, 173), block(4 * ws, whole, 367, requested=ws),
+        block(6 * ws, whole, 874, requested=whole)]}]}
+    after = {"segments": [
+        {"blocks": [block(0, ws, 367, "inactive"), block(ws, ws, 500),
+                    block(2 * ws, ws, 872),
+                    block(3 * ws, 666624, 173, "inactive"),
+                    block(4 * ws, whole, 367, "inactive", requested=ws),
+                    block(6 * ws, whole, 874, requested=whole)]},
+        {"blocks": [block(8 * ws, 4096, 175)]}]}
+    out = chip_smoke.census_cleared(before, after, ws)
+    assert out["workspace_bytes"] == 3 * ws
+    assert out["workspace_blocks"] == 3
+    assert out["workspace_rounding_bytes"] == 310_784
+    assert out["other_freed_bytes"] == 666624
+    assert out["other_freed"] == [
+        [666624, 666624,
+         "vearch_tpu_torch/ops/a.py:173 f <- threading.py:1 run"]]
+    assert out["allocated_meanwhile_bytes"] == ws + 4096
+    assert chip_smoke.census_cleared(before, before, ws)["workspace_bytes"] == 0

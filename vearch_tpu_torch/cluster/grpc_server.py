@@ -8,7 +8,15 @@ python plugin, so message classes are protoc-generated while the service
 table is registered by hand (grpc.method_handlers_generic_handler).
 
 Generated code is cached next to this module, keyed on the .proto's
-sha256 (same no-stale-binary discipline as vearch_tpu_torch/native)."""
+sha256 (same no-stale-binary discipline as vearch_tpu_torch/native).
+
+The port's departure: where protoc is missing, the message classes are
+built from `vearch_proto.desc` beside this module, the descriptor set
+protoc writes for api/vearch.proto (`protoc -Iapi
+--descriptor_set_out=vearch_tpu_torch/cluster/vearch_proto.desc
+api/vearch.proto`; tests/test_torch_operator.py holds it equal to
+protoc's), so a router serves gRPC on a machine with grpcio and protobuf
+but no protoc."""
 
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ import hashlib
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import threading
 from typing import Any
@@ -29,6 +38,9 @@ _PROTO = os.path.join(
 )
 _GEN_DIR = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), ".proto_cache"
+)
+_DESCRIPTOR_SET = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "vearch_proto.desc"
 )
 _lock = threading.Lock()
 _pb2_mod = None
@@ -50,6 +62,9 @@ def load_pb2():
         if os.path.exists(gen) and os.path.exists(hfile):
             with open(hfile) as f:
                 stale = f.read().strip() != h
+        if stale and shutil.which("protoc") is None:
+            _pb2_mod = pb2_from_descriptor_set()
+            return _pb2_mod
         if stale:
             subprocess.run(
                 ["protoc", f"-I{os.path.dirname(_PROTO)}",
@@ -63,6 +78,25 @@ def load_pb2():
         spec.loader.exec_module(mod)
         _pb2_mod = mod
         return mod
+
+
+def pb2_from_descriptor_set(path: str = _DESCRIPTOR_SET):
+    """A module holding api/vearch.proto's message classes, built from the
+    descriptor set at `path` in a pool of its own (no protoc)."""
+    import types
+
+    from google.protobuf import descriptor_pb2, descriptor_pool, message_factory
+
+    with open(path, "rb") as f:
+        fds = descriptor_pb2.FileDescriptorSet.FromString(f.read())
+    pool = descriptor_pool.DescriptorPool()
+    for fd in fds.file:
+        pool.Add(fd)
+    mod = types.ModuleType("vearch_pb2")
+    mod.DESCRIPTOR = pool.FindFileByName("vearch.proto")
+    for name, desc in mod.DESCRIPTOR.message_types_by_name.items():
+        setattr(mod, name, message_factory.GetMessageClass(desc))
+    return mod
 
 
 # RpcError HTTP codes -> canonical gRPC status codes

@@ -5,6 +5,15 @@ internal/master/cluster_api.go:244 admin routes;
 services/space_service.go:59 CreateSpace — schema validate, cluster lock,
 slot carving, placement; master_cache.go lease-expiry failure detection).
 Route names mirror the reference so SDKs port over directly.
+
+The port's copy of vearch_tpu/cluster/master.py, with one departure: a
+replica added to a partition (a returning replica, an auto-recover
+placement, a manual add) widens the membership only once the leader runs
+it, and raises the partition's promotion watermark to the leader's log
+at that point. The reference widens the membership it records even when
+the leader never heard of it, and keeps the watermark of the last
+promotion, so a failover before the added replica caught up could
+promote it past writes committed while it was out of the group.
 """
 
 from __future__ import annotations
@@ -704,12 +713,12 @@ class MasterServer:
         replica among such a set holds every entry committed UNDER THE
         CURRENT membership. Entries committed under an earlier
         membership are only guaranteed in the log of the leader chosen
-        at the previous reconfiguration, so each promotion also records
-        that leader's (last_term, last_index) as `promoted_log` and a
-        later promotion refuses any candidate behind it (see
-        _reconfigure_partition). Below either threshold the partition
-        stays unavailable (leaderless) rather than silently dropping
-        acked data."""
+        at the previous reconfiguration, so each promotion (and each
+        widening, _add_replica) also records that leader's (last_term,
+        last_index) as `promoted_log` and a later promotion refuses any
+        candidate behind it (see _reconfigure_partition). Below either
+        threshold the partition stays unavailable (leaderless) rather
+        than silently dropping acked data."""
         servers = {s.node_id: s for s in self._alive_servers()}
         with self._reconfig_lock:
             for key, sp in self.store.prefix(PREFIX_SPACE).items():
@@ -874,25 +883,39 @@ class MasterServer:
         except RpcError as e:
             if e.code != 409:  # already hosted: continue with membership
                 return False
+        # the leader first: the widening stands only once the leader runs
+        # it, and the leader's log then is the promotion watermark (same
+        # contract as _reconfigure_partition): entries committed under the
+        # narrower membership may live only there until the added replica
+        # catches up, so a failover before then must not promote it
+        decree = {"pid": p["id"], "term": new_term, "members": members,
+                  "leader": p["leader"]}
+        leader = servers.get(p["leader"])
+        if leader is None:
+            return False
+        try:
+            st = rpc.call(leader.rpc_addr, "POST", "/ps/raft/lead", decree)
+        except RpcError:
+            return False
+        pos = [int(st["last_term"]), int(st["last_index"])]
+        floor = p.get("promoted_log")
+        if floor is None or pos > [int(floor[0]), int(floor[1])]:
+            p["promoted_log"] = pos
         p["replicas"] = members
         p["term"] = new_term
-        ok = True
         for r in members:
             srv = servers.get(r)
-            if srv is None:
+            if srv is None or r == p["leader"]:
                 continue
-            path = "/ps/raft/lead" if r == p["leader"] else "/ps/raft/members"
             try:
-                rpc.call(srv.rpc_addr, "POST", path,
-                         {"pid": p["id"], "term": new_term,
-                          "members": members, "leader": p["leader"]})
+                rpc.call(srv.rpc_addr, "POST", "/ps/raft/members", decree)
             except RpcError:
-                ok = ok and r != p["leader"]
+                pass
         if p["id"] not in target.partition_ids:
             target.partition_ids.append(p["id"])
             self.store.put(f"{PREFIX_SERVER}{target.node_id}",
                            target.to_dict())
-        return ok
+        return True
 
     def _h_change_member(self, body: dict, _parts) -> dict:
         """Manual membership admin (reference: /partitions/change_member,

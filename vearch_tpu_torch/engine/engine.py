@@ -517,6 +517,7 @@ class Engine:
         dur_us]). Builds and warmup run inside the flight recorder's
         warmup scope: their compile events are expected."""
         t_start = time.monotonic()
+        perf_model.note_blas_thread(self.device)
         targets = [(name, idx) for name, idx in self.indexes.items()
                    if field_name is None or name == field_name]
         job: dict[str, Any] = {
@@ -673,7 +674,12 @@ class Engine:
                 for name, index in self.indexes.items():
                     if index.trained:
                         try:
-                            index.absorb(self.vector_stores[name].count)
+                            count = self.vector_stores[name].count
+                            if index.indexed_count < count:
+                                # this thread's cuBLAS workspace, counted
+                                # for the sampler, once it absorbs rows
+                                perf_model.note_blas_thread(self.device)
+                            index.absorb(count)
                         except Exception as e:
                             self.last_build_error = e
 
@@ -1075,6 +1081,8 @@ class Engine:
     def _search_direct(self, req: SearchRequest) -> list[SearchResult]:
         if not req.vectors:
             raise ValueError("search needs at least one vector field")
+        # this thread's cuBLAS workspace, counted for the sampler
+        perf_model.note_blas_thread(self.device)
         phases: list[tuple[str, float, float]] = []
         # a traced search captures the search programs it runs
         capture = ivf_ops.begin_capture() if req.trace is not None else None
@@ -1566,6 +1574,7 @@ class Engine:
         for name, index in self.indexes.items():
             p = os.path.join(dirpath, f"index_{name}.npz")
             if os.path.exists(p):
+                perf_model.note_blas_thread(self.device)  # the re-absorb
                 with np.load(p, allow_pickle=False) as data:
                     index.load_state(index_state_from_reference(dict(data)))
         with open(os.path.join(dirpath, "engine.json")) as f:

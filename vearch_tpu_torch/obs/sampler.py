@@ -18,6 +18,13 @@ claimed to cover), then per device
 `drift` when it exceeds ``drift_slack_bytes + drift_tolerance * model``
 (64 MB + 0.5 x model). Drift is one-sided: an allocation the model does
 not know of pushes the measurement above it.
+
+One departure: on each card the measurement is also held against the
+cuBLAS workspaces of the threads that ran the port's device work
+(`perf_model.blas_workspace_bytes`, reported as `blas_workspace_bytes`),
+PyTorch's runtime bytes, which no engine's model holds: 32 MiB for each
+such thread alive at once, which in a partition server process took
+130-236 MB past the models (PERF.md).
 """
 
 from __future__ import annotations
@@ -74,6 +81,7 @@ class DeviceSampler:
             "h2d_bytes_total": 0,
             "compiled_programs": 0,
             "model_per_device_bytes": 0,
+            "blas_workspace_bytes": {},
             "baseline_per_device_bytes": {},
             "drift_bytes": 0,
             "drift": False,
@@ -108,18 +116,21 @@ class DeviceSampler:
     def sample_now(self) -> dict[str, Any]:
         devices = measure_live_bytes()
         model = int(self.model_bytes_fn() or 0)
+        blas = {lbl: perf_model.blas_workspace_bytes(torch.device(lbl))
+                for lbl in devices}
         h2d = perf_model.h2d_bytes_total()
         compiled = perf_model.total_compiled_programs()
         with self._lock:
             if self._state["samples"] == 0:
                 # what was resident before the modelled structures
                 self._state["baseline_per_device_bytes"] = {
-                    lbl: max(0, b - model) for lbl, b in devices.items()}
+                    lbl: max(0, b - model - blas[lbl])
+                    for lbl, b in devices.items()}
             base = self._state["baseline_per_device_bytes"]
             drift_bytes = 0
             for lbl, measured in devices.items():
-                drift_bytes = max(drift_bytes,
-                                  measured - model - base.get(lbl, 0))
+                drift_bytes = max(drift_bytes, measured - model - blas[lbl]
+                                  - base.get(lbl, 0))
             drift = drift_bytes > (self.drift_slack_bytes
                                    + self.drift_tolerance * model)
             self._state.update({
@@ -128,6 +139,7 @@ class DeviceSampler:
                 "h2d_bytes_total": h2d,
                 "compiled_programs": compiled,
                 "model_per_device_bytes": model,
+                "blas_workspace_bytes": blas,
                 "drift_bytes": int(drift_bytes),
                 "drift": bool(drift),
             })

@@ -35,6 +35,7 @@ import enum
 import functools
 import threading
 import time
+import weakref
 from typing import Any, Callable
 
 # must match ops/blockmax_scan.py BLOCK and STAGE2_CHUNK
@@ -313,6 +314,90 @@ def note_h2d_bytes(n: int) -> None:
 def h2d_bytes_total() -> int:
     with _h2d_lock:
         return _h2d_bytes_total
+
+
+# cuBLAS workspaces, the device bytes of PyTorch's runtime that no index
+# holds. PyTorch gives each thread that runs a cuBLAS call a handle from a
+# per-card pool, and each (handle, stream) a workspace from the caching
+# allocator, kept until torch._C._cuda_clearCublasWorkspaces(); a handle
+# goes back to the pool when its thread ends, and the next new thread
+# takes it with its workspace. So a process holds one workspace for each
+# thread that ran cuBLAS while the others did: the peak number of such
+# threads alive at once. The engine notes every thread it runs device
+# work on (`note_blas_thread`: searches, builds, the refresh loop's
+# absorbs), and that thread runs a 1x1 product at once, so it holds its
+# workspace from then on whatever it runs next. The partition server's
+# sampler adds `blas_workspace_bytes()` to its engines' models
+# (obs/sampler.py). The census of one server on the card (chip_smoke.py
+# census_main, PERF.md) found exactly these blocks past the models:
+# 33,554,432 bytes each, on torch 2.11 and an H100.
+
+_blas_lock = threading.Lock()
+_blas_tls = threading.local()
+_blas_threads: dict[int, weakref.WeakSet] = {}
+_blas_peak: dict[int, int] = {}
+
+
+def cublas_workspace_size(device: Any) -> int:
+    """Bytes of one cuBLAS workspace on `device`, as PyTorch sizes it:
+    the `:SIZE_KiB:COUNT` pairs of CUBLAS_WORKSPACE_CONFIG summed when it
+    is set, else 4096 KiB x 8 on sm_90 and 4096 KiB x 2 + 16 KiB x 8 on
+    other cards."""
+    import os
+
+    import torch
+
+    cfg = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    if cfg:
+        vals = [int(v) for v in cfg.split(":") if v]
+        return sum(vals[i] * vals[i + 1] * 1024
+                   for i in range(0, len(vals) - 1, 2))
+    major, minor = torch.cuda.get_device_capability(device)
+    if (major, minor) == (9, 0):
+        return 4096 * 1024 * 8
+    return 4096 * 1024 * 2 + 16 * 1024 * 8
+
+
+def _prime_blas(device: Any) -> None:
+    """A 1x1 product on `device`: the calling thread's cuBLAS handle and
+    workspace exist from here on."""
+    import torch
+
+    one = torch.ones((1, 1), device=device)
+    torch.mm(one, one)
+
+
+def note_blas_thread(device: Any) -> None:
+    """Count the calling thread among those holding a cuBLAS workspace on
+    `device` (a CUDA device; a no-op for any other, and for a thread
+    already counted)."""
+    if getattr(device, "type", None) != "cuda":
+        return
+    index = device.index if device.index is not None else 0
+    noted = getattr(_blas_tls, "devices", None)
+    if noted is None:
+        noted = _blas_tls.devices = set()
+    if index in noted:
+        return
+    _prime_blas(device)
+    noted.add(index)
+    me = threading.current_thread()
+    with _blas_lock:
+        threads = _blas_threads.setdefault(index, weakref.WeakSet())
+        threads.add(me)
+        live = sum(1 for t in threads if t.is_alive())
+        _blas_peak[index] = max(_blas_peak.get(index, 0), live)
+
+
+def blas_workspace_bytes(device: Any) -> int:
+    """The cuBLAS workspaces this process holds on `device`: the peak
+    number of live noted threads, times one workspace."""
+    if getattr(device, "type", None) != "cuda":
+        return 0
+    index = device.index if device.index is not None else 0
+    with _blas_lock:
+        peak = _blas_peak.get(index, 0)
+    return peak * cublas_workspace_size(device) if peak else 0
 
 
 def slab_bytes(cap: int, d: int) -> int:
