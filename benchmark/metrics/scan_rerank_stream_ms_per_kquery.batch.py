@@ -1,0 +1,11 @@
+"""Stream time of the `scan.rerank` device span per 1,000 queries
+answered in a batch cell: the exact rerank of the candidates against the
+raw rows, timed on the CUDA stream by the program's event pair from the
+stage's start to its last operation and summed over the traced window's
+searches (each trace's `stream_ms`)."""
+
+from benchmark.harness.spans import stream_ms_per_kquery
+
+
+def read(ctx):
+    return stream_ms_per_kquery(ctx, "scan.rerank")

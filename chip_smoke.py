@@ -4608,6 +4608,19 @@ def phase_cluster(dev, base, queries) -> tuple[dict, dict, tuple, dict]:
     return out, paths, elastic, ref
 
 
+def _is_range(ev) -> bool:
+    """Whether a profiler event is a record_function range (one of the
+    program's spans) rather than a kernel. Raises where this torch's
+    events do not say, since counting the ranges as kernels would
+    inflate the device time without an error."""
+    flag = getattr(ev, "is_user_annotation", None)
+    if flag is None:
+        raise RuntimeError(
+            f"profiler event {ev.key!r} carries no is_user_annotation: "
+            "the program's ranges cannot be told from kernels")
+    return bool(flag)
+
+
 def profile_search(eng, req, ranges=()) -> dict:
     """Device time by kernel over one search (torch.profiler), the
     device's busy share of the search's wall time, and the device time
@@ -4627,9 +4640,10 @@ def profile_search(eng, req, ranges=()) -> dict:
         dev_us = getattr(ev, "device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "cuda_time_total", 0.0)
-        # a record_function range shows on the device too: not a kernel
+        # a profiler range (the program's spans, `ranges`) shows on the
+        # device too: not a kernel
         if (ev.device_type == torch.autograd.DeviceType.CUDA and dev_us
-                and ev.key not in ranges):
+                and ev.key not in ranges and not _is_range(ev)):
             rows.append((dev_us / 1e3, ev.key, ev.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
@@ -4638,8 +4652,12 @@ def profile_search(eng, req, ranges=()) -> dict:
            "top": [{"kernel": k[:80], "ms": ms, "calls": c}
                    for ms, k, c in rows[:8]]}
     if ranges:
+        # each range is read from its host side, which sums the device
+        # time of the kernels launched inside it; its mirror on the
+        # device's timeline has the same key and can lose its records
         got = {ev.key: getattr(ev, "device_time_total", 0.0) / 1e3
-               for ev in prof.key_averages() if ev.key in ranges}
+               for ev in prof.key_averages() if ev.key in ranges
+               and ev.device_type == torch.autograd.DeviceType.CPU}
         res["ranges_ms"] = {name: got.get(name, 0.0) for name in ranges}
     print("profile " + json.dumps(res), flush=True)
     return res

@@ -184,11 +184,11 @@ promote it past writes committed while it was out of the group.
         return True
 '''),
     ],
-    # ps.py's second departure (test_ps_differs_from_reference_only_by_its
-    # _device applies these after the device edits): a partition create
-    # waits until start() has reopened the partitions on disk, so the
-    # master's re-add of a restarting replica cannot write an empty engine
-    # over one of them (tests/test_torch_processes.py)
+    # ps.py's second and third departures (test_ps_differs_from_reference_
+    # only_by_its_device applies these after the device edits): a
+    # partition create waits until start() has reopened the partitions on
+    # disk, so the master's re-add of a restarting replica cannot write an
+    # empty engine over one of them (tests/test_torch_processes.py)
     "cluster/ps.py": [
         ("""        self._stop = threading.Event()
         # concurrency gate""", """        self._stop = threading.Event()
@@ -209,6 +209,22 @@ promote it past writes committed while it was out of the group.
             raise RpcError(503, "partition server is still reopening its "
                                 "partitions")
 """),
+        # the third: a traced search's `stream_ms` ({device span: ms on
+        # the CUDA stream}, which only the port records) is the profile's
+        # own block, not a phase (docs/OBSERVABILITY.md)
+        ("""        if k.endswith("_ms") and not k.startswith("dispatch_")
+    }""", """        if k.endswith("_ms") and not k.startswith("dispatch_")
+        and k != "stream_ms"
+    }"""),
+        ("""    if "mesh" in timing:
+        out["mesh"] = timing["mesh"]
+    return out""", """    if "mesh" in timing:
+        out["mesh"] = timing["mesh"]
+    if "stream_ms" in timing:
+        out["stream_ms"] = timing["stream_ms"]
+    return out"""),
+        (" " * 31 + 'if k.endswith("_ms")},',
+         " " * 31 + 'if k.endswith("_ms") and k != "stream_ms"},'),
     ],
     "cluster/raft.py": [
         ('''followers that fell behind the truncation horizon.

@@ -231,7 +231,63 @@ framework — the script remains as a thin CLI delegating here, and
 ``tests/test_obs_docs.py`` keeps gating tier-1 through it.
 ''', '''The port's copy of vearch_tpu/tools/lint/rules_obs.py, and the one home
 of the port's drift helpers: the doctor's ``obs_docs`` check
-(obs/doctor.py) reads them.
+(obs/doctor.py) reads them. The port's check reads docs/OBSERVABILITY.md
+and the port's own docs/OBSERVABILITY_TORCH.md as one (``doc_paths``,
+``drift_failures_over``).
+'''),
+        # the port's names that the reference does not emit are
+        # documented in docs/OBSERVABILITY_TORCH.md, read with the shared
+        # doc as one
+        ('''import os
+''', '''import fnmatch
+import os
+'''),
+        ('''    return os.path.join(repo_root(), "docs", "OBSERVABILITY.md")
+''', '''    return os.path.join(repo_root(), "docs", "OBSERVABILITY.md")
+
+
+def doc_paths() -> list[str]:
+    """The docs the port's drift check reads as one: the shared
+    docs/OBSERVABILITY.md and the port's own docs/OBSERVABILITY_TORCH.md,
+    which lists what only the port emits."""
+    return [default_doc_path(),
+            os.path.join(repo_root(), "docs", "OBSERVABILITY_TORCH.md")]
+'''),
+        ('''def check_package(''', '''def drift_failures_over(
+    src_metrics: set[str], src_spans: set[str], src_tags: set[str],
+    doc_paths: list[str],
+) -> list[str]:
+    """`drift_failures` with the docs read as one: a name is undocumented
+    when no doc names it, and documented in vain when a doc names it and
+    nothing emits it. A documented family (`stage.{phase}`) is emitted
+    when a name of that family is (`stage.flush`)."""
+    per_doc = [drift_failures(src_metrics, src_spans, src_tags, p)
+               for p in doc_paths]
+    out: list[str] = []
+    for failures in per_doc:
+        for failure in failures:
+            kind, _, name = failure.partition(": ")
+            if kind.endswith("undocumented"):
+                keep = all(failure in other for other in per_doc)
+            else:
+                keep = not (kind == "span documented but never emitted"
+                            and any(fnmatch.fnmatchcase(s, name)
+                                    for s in src_spans))
+            if keep and failure not in out:
+                out.append(failure)
+    return out
+
+
+def check_package('''),
+        ('''    doc = doc_path or default_doc_path()
+    metrics, spans, tags = source_names(src)
+    return drift_failures(metrics, spans, tags, doc)
+''', '''    docs = [doc_path] if doc_path else doc_paths()
+    metrics, spans, tags = source_names(src)
+    return drift_failures_over(metrics, spans, tags, docs)
+'''),
+        ('''    for failure in drift_failures(metrics, spans, tags, doc):
+''', '''    for failure in drift_failures_over(metrics, spans, tags, doc_paths()):
 '''),
     ],
 }

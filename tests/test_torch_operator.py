@@ -73,12 +73,20 @@ def test_elastic_cli_differs_only_in_its_usage_lines():
 
 
 def test_doctor_differs_only_where_stated():
-    """The copy differs only in its usage lines: its drift check reads
-    the port's lint rule, and lint_clean runs the port's lint over the
-    port's tree, both through the rewritten imports."""
+    """The copy differs only in its usage lines and in its drift check,
+    which reads the shared docs/OBSERVABILITY.md and the port's own
+    docs/OBSERVABILITY_TORCH.md as one through the port's lint rule;
+    lint_clean runs the port's lint over the port's tree, both through
+    the rewritten imports."""
     ref = _rewrite(_read("vearch_tpu", "obs", "doctor.py"))
     ref = ref.replace("python -m vearch_tpu doctor",
                       "python -m vearch_tpu_torch doctor")
+    old = ("    failures = rules_obs.drift_failures(\n"
+           "        *rules_obs.source_names(pkg_root), doc\n")
+    assert ref.count(old) == 1
+    ref = ref.replace(old, (
+        "    failures = rules_obs.drift_failures_over(\n"
+        "        *rules_obs.source_names(pkg_root), rules_obs.doc_paths()\n"))
     assert _read("vearch_tpu_torch", "obs", "doctor.py") == ref
     ok, detail = doctor._check_lint_clean()
     assert ok is True, detail

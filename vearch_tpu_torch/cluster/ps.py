@@ -83,6 +83,7 @@ def _profile_from_timing(timing: dict) -> dict:
     phases = {
         k[: -len("_ms")]: v for k, v in timing.items()
         if k.endswith("_ms") and not k.startswith("dispatch_")
+        and k != "stream_ms"
     }
     per_dispatch = {
         k[len("dispatch_"): -len("_ms")]: v for k, v in timing.items()
@@ -105,6 +106,8 @@ def _profile_from_timing(timing: dict) -> dict:
         out["micro_batch_rows"] = timing["micro_batch_rows"]
     if "mesh" in timing:
         out["mesh"] = timing["mesh"]
+    if "stream_ms" in timing:
+        out["stream_ms"] = timing["stream_ms"]
     return out
 
 
@@ -2230,7 +2233,7 @@ class PSServer:
                     "elapsed_ms": round(ms, 3),
                     "killed": ctx.killed, "reason": ctx.reason,
                     "phases": {k[:-len("_ms")]: v for k, v in t.items()
-                               if k.endswith("_ms")},
+                               if k.endswith("_ms") and k != "stream_ms"},
                     "dispatches": t.get("dispatches"),
                     "trace_id": span.trace_id or None,
                 })

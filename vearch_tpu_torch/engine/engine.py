@@ -119,7 +119,8 @@ class SearchRequest:
     # the scheduler
     raw_results: bool = False
     # when not None, the engine records per-phase wall times into it
-    # ({phase}_ms keys and `_phase_spans` [name, start_us, dur_us])
+    # ({phase}_ms keys, `_phase_spans` [name, start_us, dur_us] and, on a
+    # CUDA device, `stream_ms`: {device span name: ms on the stream})
     trace: dict[str, float] | None = None
     # cooperative cancellation, checked at phase boundaries: a killed
     # request aborts before its next device dispatch, never mid-kernel
@@ -1083,31 +1084,30 @@ class Engine:
             raise ValueError("search needs at least one vector field")
         # this thread's cuBLAS workspace, counted for the sampler
         perf_model.note_blas_thread(self.device)
-        phases: list[tuple[str, float, float]] = []
-        # a traced search captures the search programs it runs
-        capture = ivf_ops.begin_capture() if req.trace is not None else None
+        # a traced search captures the search programs it runs and the
+        # spans it opens (ops/ivf.py span)
+        capture = (ivf_ops.begin_capture(self.device)
+                   if req.trace is not None else None)
         try:
-            return self._search_phases(req, phases)
+            return self._search_phases(req)
         finally:
             if capture is not None:
                 ivf_ops.end_capture()
-                self._record_dispatch_trace(req, capture, phases)
+                self._record_dispatch_trace(req, capture)
 
-    def _search_phases(self, req: SearchRequest,
-                       phases: list[tuple[str, float, float]]
-                       ) -> list[SearchResult]:
+    def _search_phases(self, req: SearchRequest) -> list[SearchResult]:
         trace = req.trace
         t_start = time.monotonic()
         n = self.table.doc_count
-        if req.filters is not None:
-            valid = self._device_filtered_mask(req.filters, n)
-        else:
-            # the alive mask changes only on writes: keep it on the device
-            valid = self._device_alive_mask(n)
+        with ivf_ops.span("engine.filter") as sp:
+            if req.filters is not None:
+                valid = self._device_filtered_mask(req.filters, n)
+            else:
+                # the alive mask changes only on writes: keep it on the
+                # device
+                valid = self._device_alive_mask(n)
         if trace is not None:
-            t_filter = time.monotonic()
-            trace["filter_ms"] = round((t_filter - t_start) * 1e3, 3)
-            phases.append(("engine.filter", t_start, t_filter))
+            trace["filter_ms"] = sp.ms
         metrics = {self.indexes[name].metric for name in req.vectors}
         if len(metrics) > 1:
             raise ValueError(
@@ -1125,72 +1125,82 @@ class Engine:
         for name, queries in req.vectors.items():
             if req.ctx is not None:
                 req.ctx.check()
-            t_field = time.monotonic()
-            index = self.indexes[name]
-            store = self.vector_stores[name]
-            queries = np.asarray(queries)
-            if queries.ndim == 1:
-                queries = queries[None, :]
-            queries = index.decode_input(
-                queries.reshape(queries.shape[0], index.input_dim))
-            queries_by_field[name] = queries
-            b_rows = int(queries.shape[0])
-            q_run = queries
-            if self.shape_buckets:
-                # pad rows up to the declared bucket with a REAL row (a
-                # zero row is degenerate under cosine); every scan path
-                # is per-row, so the pad rows change nothing for real rows
-                bb = perf_model.bucket_rows(b_rows)
-                if bb != b_rows:
-                    q_run = np.concatenate(
-                        [queries, np.repeat(queries[-1:], bb - b_rows, 0)])
-                self.pad_real_rows += b_rows
-                self.pad_padded_rows += bb
-                self.pad_waste_bytes += perf_model.padding_waste_bytes(
-                    b_rows, bb, int(queries.shape[1]))
-            if index.trained and not req.brute_force:
-                if index.indexed_count < store.count:
-                    index.absorb(store.count)  # realtime pump
-                scores, ids = index.search(
-                    q_run, fetch_k, valid, req.index_params or None)
-            else:
-                # the exact flat scan: asked for, or below the training
-                # threshold
-                from vearch_tpu_torch.index.flat import FlatIndex
+            with ivf_ops.span(f"engine.search.{name}") as sp:
+                index = self.indexes[name]
+                store = self.vector_stores[name]
+                with ivf_ops.span("index.input"):
+                    queries, q_run = self._search_input(index, queries)
+                queries_by_field[name] = queries
+                b_rows = int(queries.shape[0])
+                if index.trained and not req.brute_force:
+                    if index.indexed_count < store.count:
+                        index.absorb(store.count)  # realtime pump
+                    scores, ids = index.search(
+                        q_run, fetch_k, valid, req.index_params or None)
+                else:
+                    # the exact flat scan: asked for, or below the
+                    # training threshold
+                    from vearch_tpu_torch.index.flat import FlatIndex
 
-                flat = FlatIndex(IndexParams(metric_type=index.metric), store)
-                scores, ids = flat.search(q_run, fetch_k, valid)
-            per_field[name] = (scores[:b_rows], ids[:b_rows])
+                    flat = FlatIndex(IndexParams(metric_type=index.metric),
+                                     store)
+                    scores, ids = flat.search(q_run, fetch_k, valid)
+                per_field[name] = (scores[:b_rows], ids[:b_rows])
+                if trace is not None:
+                    # the field's search is done (its results are on the
+                    # host): close the open dispatch window
+                    ivf_ops.capture_mark()
             if trace is not None:
-                # the field's search is done (its results are on the
-                # host): close the open dispatch window
-                ivf_ops.capture_mark()
-                t_done = time.monotonic()
-                trace[f"search_{name}_ms"] = round(
-                    (t_done - t_field) * 1e3, 3)
-                phases.append((f"engine.search.{name}", t_field, t_done))
+                trace[f"search_{name}_ms"] = sp.ms
         if req.ctx is not None:
             req.ctx.check()
-        t_merge = time.monotonic()
-        merged = self._merge_fields(per_field, queries_by_field, req)
-        t_shape = time.monotonic()
-        results = self._shape_results(merged, req)
+        with ivf_ops.span("engine.merge") as sp:
+            merged = self._merge_fields(per_field, queries_by_field, req)
+        with ivf_ops.span("engine.shape") as sp_shape:
+            results = self._shape_results(merged, req)
         if trace is not None:
-            t_end = time.monotonic()
-            trace["merge_ms"] = round((t_shape - t_merge) * 1e3, 3)
-            trace["shape_ms"] = round((t_end - t_shape) * 1e3, 3)
-            phases.append(("engine.merge", t_merge, t_shape))
-            phases.append(("engine.shape", t_shape, t_end))
-            trace["total_ms"] = round((t_end - t_start) * 1e3, 3)
+            trace["merge_ms"] = sp.ms
+            trace["shape_ms"] = sp_shape.ms
+            trace["total_ms"] = round((time.monotonic() - t_start) * 1e3, 3)
             trace["doc_count"] = self.doc_count
         return results
 
-    def _record_dispatch_trace(self, req, capture, phases) -> None:
-        """Fold the dispatch capture and the phase windows into req.trace:
-        the measured dispatches (tags, host ms per tag) beside the perf
-        model's prediction for the matched serving path, and the
-        `_phase_spans` rows ([name, start_us, dur_us]; engine.*, kernel.*,
-        mesh.*, tier.*, stage.*)."""
+    def _search_input(self, index, queries) -> tuple[np.ndarray, np.ndarray]:
+        """(the field's decoded [b, d] queries, the rows the index runs:
+        padded up to the declared shape bucket where the engine pads)."""
+        queries = np.asarray(queries)
+        if queries.ndim == 1:
+            queries = queries[None, :]
+        queries = index.decode_input(
+            queries.reshape(queries.shape[0], index.input_dim))
+        b_rows = int(queries.shape[0])
+        q_run = queries
+        if self.shape_buckets:
+            # pad rows up to the declared bucket with a REAL row (a zero
+            # row is degenerate under cosine); every scan path is
+            # per-row, so the pad rows change nothing for real rows
+            bb = perf_model.bucket_rows(b_rows)
+            if bb != b_rows:
+                q_run = np.concatenate(
+                    [queries, np.repeat(queries[-1:], bb - b_rows, 0)])
+            self.pad_real_rows += b_rows
+            self.pad_padded_rows += bb
+            self.pad_waste_bytes += perf_model.padding_waste_bytes(
+                b_rows, bb, int(queries.shape[1]))
+        return queries, q_run
+
+    def _record_dispatch_trace(self, req, capture) -> None:
+        """Fold the capture into req.trace: the measured dispatches (tags,
+        host ms per tag) beside the perf model's prediction for the
+        matched serving path; the `_phase_spans` rows ([name, start_us,
+        dur_us]: the request's spans, engine.*, index.*, scan.*, mesh.*,
+        tier.*, stage.*, in the order they opened, then a kernel.{tag}
+        row a dispatch); and on a CUDA device `stream_ms` ({device span
+        name: ms on the stream}, summed over the search), read once the
+        answer is on the host and every span's events are complete. A
+        kernel.{tag} row is the host's window from the dispatch's note
+        to the next note or the field's end, not device time; the name
+        is the reference's."""
         trace = req.trace
         tags = capture.tags
         trace["dispatches"] = tags
@@ -1210,20 +1220,19 @@ class Engine:
         # wait on this trace before the search ran
         spans = list(trace.get("_phase_spans") or [])
         spans += [[name, mono_us(t0), int((t1 - t0) * 1e6)]
-                  for name, t0, t1 in phases]
+                  for name, t0, t1 in capture.spans if t1 is not None]
         spans += [[f"kernel.{tag}", mono_us(t0), int((t1 - t0) * 1e6)]
                   for tag, t0, t1 in capture.events if t1 is not None]
-        for prefix, windows in (("mesh", capture.mesh_phases),
-                                ("tier", capture.tier_phases),
-                                ("stage", capture.stage_phases)):
-            spans += [[f"{prefix}.{name}", mono_us(t0),
-                       int((t1 - t0) * 1e6)] for name, t0, t1 in windows]
         trace["_phase_spans"] = spans
-        if capture.mesh_phases or any(t.startswith("sharded") for t in tags):
+        if capture.stream:
+            trace["stream_ms"] = {name: round(ms, 3) for name, ms
+                                  in capture.stream_ms().items()}
+        names = {row[0].split(".", 1)[0] for row in capture.spans}
+        if "mesh" in names or any(t.startswith("sharded") for t in tags):
             info = self.mesh_info()
             if info is not None:
                 trace["mesh"] = info
-        if capture.tier_phases:
+        if "tier" in names:
             tinfo = self.tiering_info()
             if tinfo is not None:
                 trace["tiering"] = tinfo

@@ -28,8 +28,6 @@ sharded_binary_refine_rerank, the "mesh" path of `note_refine_search`).
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 
 from vearch_tpu_torch.engine.raw_vector import RawVectorStore
@@ -161,49 +159,48 @@ class IVFRaBitQIndex(IVFPQIndex):
         if self._mesh_enabled(p) and not is_disk_store(self.store):
             return self._search_binary_mesh(q, k, valid_mask, p, metric,
                                             r0, r1, topk_mode)
-        # host windows of the chain (stage.* spans of a traced search)
-        t_flush0 = time.monotonic()
-        planes, p_scale, p_vsq = self._bits.flush()
-        approx8, m_scale, m_vsq = self._mirror.flush()
-        valid = to_device_mask(valid_mask, self.indexed_count,
-                               planes.shape[0], self.device)
-        ivf_ops.note_stage_phase("flush", t_flush0, time.monotonic())
-        if is_disk_store(self.store):
+        disk = is_disk_store(self.store)
+        with ivf_ops.span("index.prepare"):
+            # host windows of the chain: the reference's stage.* rows
+            with ivf_ops.span("stage.flush"):
+                planes, p_scale, p_vsq = self._bits.flush()
+                approx8, m_scale, m_vsq = self._mirror.flush()
+                valid = to_device_mask(valid_mask, self.indexed_count,
+                                       planes.shape[0], self.device)
+            qt = self._to_device(q)
+            if not disk:
+                base, base_sqnorm, _ = self.store.device_buffer()
+        if disk:
             # stages 0-1 on the device; the stage-2 rows gathered on the
             # host through the mmap (the raw base never enters the card)
-            t0 = time.monotonic()
-            ivf_ops.note_dispatch("binary_refine_scan")
-            _, cand_i = binary_ops.binary_refine_candidates(
-                self._to_device(q), planes, p_scale, p_vsq,
-                approx8, m_scale, m_vsq, valid, r0, r1, metric, topk_mode,
-                self.mirror_storage,
-            )
-            ivf_ops.note_stage_phase("scan", t0, time.monotonic())
-            t2 = time.monotonic()
-            ivf_ops.note_dispatch("rerank")
-            scores, ids = rerank_against_store(
-                self.store, q, cand_i, min(k, int(cand_i.shape[1])),
-                self.metric,
-            )
-            scores, ids = _host(scores), _host(ids)
-            ivf_ops.note_stage_phase("rerank", t2, time.monotonic())
+            with ivf_ops.span("stage.scan"):
+                ivf_ops.note_dispatch("binary_refine_scan")
+                _, cand_i = binary_ops.binary_refine_candidates(
+                    qt, planes, p_scale, p_vsq, approx8, m_scale, m_vsq,
+                    valid, r0, r1, metric, topk_mode, self.mirror_storage,
+                )
+            with ivf_ops.span("stage.rerank"):
+                ivf_ops.note_dispatch("rerank")
+                scores, ids = rerank_against_store(
+                    self.store, q, cand_i, min(k, int(cand_i.shape[1])),
+                    self.metric,
+                )
+                out = self._fetch(scores, ids, k)
             binary_ops.note_refine_search(
                 "disk", self.indexed_count, r0, r1, k, q.shape[0])
-            return self._pad_to_k(scores, ids, k)
-        base, base_sqnorm, _ = self.store.device_buffer()
-        t0 = time.monotonic()
-        ivf_ops.note_dispatch("binary_refine_rerank")
-        scores, ids = binary_ops.binary_refine_rerank(
-            self._to_device(q), planes, p_scale, p_vsq,
-            approx8, m_scale, m_vsq, valid, base, base_sqnorm, r0, r1, k,
-            scan_metric=metric, rerank_metric=self.metric,
-            topk_mode=topk_mode, storage=self.mirror_storage,
-        )
-        scores, ids = _host(scores), _host(ids)
-        ivf_ops.note_stage_phase("refine", t0, time.monotonic())
+            return out
+        with ivf_ops.span("stage.refine"):
+            ivf_ops.note_dispatch("binary_refine_rerank")
+            scores, ids = binary_ops.binary_refine_rerank(
+                qt, planes, p_scale, p_vsq, approx8, m_scale, m_vsq, valid,
+                base, base_sqnorm, r0, r1, k,
+                scan_metric=metric, rerank_metric=self.metric,
+                topk_mode=topk_mode, storage=self.mirror_storage,
+            )
+            out = self._fetch(scores, ids, k)
         binary_ops.note_refine_search(
             "fused", self.indexed_count, r0, r1, k, q.shape[0])
-        return self._pad_to_k(scores, ids, k)
+        return out
 
     def _search_binary_mesh(
         self, q: np.ndarray, k: int, valid_mask, params, metric,
@@ -212,26 +209,24 @@ class IVFRaBitQIndex(IVFPQIndex):
         """The chain over the mesh: planes, mirror and raw base sharded
         in lockstep (the same 512 alignment for planes and mirror), stages
         0-1 shard-local, one gather, the owner rerank."""
-        t_place0 = time.monotonic()
-        mesh = self._serving_mesh(params)
-        planes, p_scale, p_vsq = self._bits.flush_sharded(mesh)
-        a8, m_scale, m_vsq = self._mirror.flush_sharded(mesh)
-        n = self.indexed_count
-        cap = self._bits._sh_cache.capacity(mesh, n)
-        valid_sh = self._mesh_valid_cache.get(mesh, valid_mask, n, cap)
-        base, base_sqn, _ = self.store.device_buffer_sharded(mesh)
-        qd, b = mesh_lib.shard_queries(mesh, np.asarray(q, np.float32))
-        ivf_ops.note_mesh_phase("place", t_place0, time.monotonic())
-        t0 = time.monotonic()
-        ivf_ops.note_dispatch("sharded_binary_refine_rerank")
-        scores, ids = sharded_binary_refine(
-            mesh, planes, p_scale, p_vsq, a8, m_scale, m_vsq, valid_sh,
-            base, base_sqn, qd, r0, r1, min(k, r1),
-            scan_metric=metric, rerank_metric=self.metric,
-            topk_mode=topk_mode, storage=self.mirror_storage,
-        )
-        scores, ids = _host(scores)[:b], _host(ids)[:b]
-        ivf_ops.note_stage_phase("refine", t0, time.monotonic())
+        with ivf_ops.span("mesh.place"):
+            mesh = self._serving_mesh(params)
+            planes, p_scale, p_vsq = self._bits.flush_sharded(mesh)
+            a8, m_scale, m_vsq = self._mirror.flush_sharded(mesh)
+            n = self.indexed_count
+            cap = self._bits._sh_cache.capacity(mesh, n)
+            valid_sh = self._mesh_valid_cache.get(mesh, valid_mask, n, cap)
+            base, base_sqn, _ = self.store.device_buffer_sharded(mesh)
+            qd, b = mesh_lib.shard_queries(mesh, np.asarray(q, np.float32))
+        with ivf_ops.span("stage.refine"):
+            ivf_ops.note_dispatch("sharded_binary_refine_rerank")
+            scores, ids = sharded_binary_refine(
+                mesh, planes, p_scale, p_vsq, a8, m_scale, m_vsq, valid_sh,
+                base, base_sqn, qd, r0, r1, min(k, r1),
+                scan_metric=metric, rerank_metric=self.metric,
+                topk_mode=topk_mode, storage=self.mirror_storage,
+            )
+            scores, ids = _host(scores)[:b], _host(ids)[:b]
         binary_ops.note_refine_search("mesh", n, r0, r1, k, b)
         return self._pad_to_k(scores, ids, k)
 

@@ -60,7 +60,6 @@ device, virtual ones included; `last_train_mesh` names it.
 
 from __future__ import annotations
 
-import time
 from typing import Any
 
 import numpy as np
@@ -321,6 +320,13 @@ class _IVFBase(VectorIndex):
             np.pad(scores, ((0, 0), (0, pad)), constant_values=float("-inf")),
             np.pad(ids, ((0, 0), (0, pad)), constant_values=-1),
         )
+
+    def _fetch(self, scores: torch.Tensor, ids: torch.Tensor, k: int
+               ) -> tuple[np.ndarray, np.ndarray]:
+        """The answer on the host, padded to k: where the host waits for
+        the device's work to end."""
+        with ivf_ops.span("index.fetch"):
+            return self._pad_to_k(_host(scores), _host(ids), k)
 
     # -- state ---------------------------------------------------------------
 
@@ -635,15 +641,18 @@ class IVFPQIndex(_IVFBase):
             # and gates the fused program to the probed cells
             return self._search_mesh(q, k, valid_mask, p, metric,
                                      probe_nprobe=max(self._nprobe(p), 1))
-        qt = self._to_device(q)
         rerank = self._exact_rerank_enabled(p)
         if mode != "full":
+            with ivf_ops.span("index.prepare"):
+                qt = self._to_device(q)
             cand_s, cand_i = self._probe_candidates(q, qt, k, valid_mask, p,
                                                     metric)
         else:
-            approx8, scale, vsq = self._mirror.flush()
-            valid = to_device_mask(valid_mask, self.indexed_count,
-                                   approx8.shape[0], self.device)
+            with ivf_ops.span("index.prepare"):
+                qt = self._to_device(q)
+                approx8, scale, vsq = self._mirror.flush()
+                valid = to_device_mask(valid_mask, self.indexed_count,
+                                       approx8.shape[0], self.device)
             r = min(self._rerank_depth(k, p), max(self.indexed_count, 1))
             topk_mode = p.get("topk_mode",
                               self.params.get("topk_mode", "auto"))
@@ -658,7 +667,8 @@ class IVFPQIndex(_IVFBase):
                     metric is MetricType.L2,
                 )
             elif fused and rerank and not is_disk_store(self.store):
-                base, base_sqnorm, _ = self.store.device_buffer()
+                with ivf_ops.span("index.prepare"):
+                    base, base_sqnorm, _ = self.store.device_buffer()
                 ivf_ops.note_dispatch("fused_scan_rerank")
                 scores, ids = ivf_ops.int8_scan_rerank(
                     qt, approx8, scale, vsq, valid, base, base_sqnorm,
@@ -666,7 +676,7 @@ class IVFPQIndex(_IVFBase):
                     rerank_metric=self.metric, topk_mode=topk_mode,
                     storage=self.mirror_storage,
                 )
-                return self._pad_to_k(_host(scores), _host(ids), k)
+                return self._fetch(scores, ids, k)
             else:
                 scan = (ivf_ops.int8_scan_candidates
                         if self.mirror_storage == "int8"
@@ -679,8 +689,7 @@ class IVFPQIndex(_IVFBase):
         if not rerank:
             # the quantized scores as they are, best first: no raw-store
             # gather
-            return self._pad_to_k(_host(cand_s[:, :k]), _host(cand_i[:, :k]),
-                                  k)
+            return self._fetch(cand_s[:, :k], cand_i[:, :k], k)
         return self._rerank(q, cand_i, k)
 
     # -- the mesh ------------------------------------------------------------
@@ -718,25 +727,27 @@ class IVFPQIndex(_IVFBase):
         `probe_nprobe > 0` is the probe regime routed here by search():
         the same fused program gated to the probed cells, under its own
         dispatch tag."""
-        t_place0 = time.monotonic()
-        mesh = self._serving_mesh(p)
-        a8, scale, vsq = self._mirror.flush_sharded(mesh)
-        n = self.indexed_count
-        cap = self._mirror._sh_cache.capacity(mesh, n)
-        valid_sh = self._mesh_valid_cache.get(mesh, valid_mask, n, cap)
-        nprobe = probe_nprobe or self._mesh_nprobe(p)
-        cents = assign_sh = None
-        if nprobe > 0:
-            cents = mesh_lib.replicate(mesh, self.centroids)
-            assign_sh = self._assign_sharded(mesh, n)
-        qd, b = mesh_lib.shard_queries(mesh, np.asarray(q, np.float32))
-        r = min(self._rerank_depth(k, p), max(n, 1))
-        topk_mode = p.get("topk_mode", self.params.get("topk_mode", "auto"))
-        fused = p.get("fused_rerank", self.params.get("fused_rerank", True))
-        rerank = self._exact_rerank_enabled(p)
+        with ivf_ops.span("mesh.place"):
+            mesh = self._serving_mesh(p)
+            a8, scale, vsq = self._mirror.flush_sharded(mesh)
+            n = self.indexed_count
+            cap = self._mirror._sh_cache.capacity(mesh, n)
+            valid_sh = self._mesh_valid_cache.get(mesh, valid_mask, n, cap)
+            nprobe = probe_nprobe or self._mesh_nprobe(p)
+            cents = assign_sh = None
+            if nprobe > 0:
+                cents = mesh_lib.replicate(mesh, self.centroids)
+                assign_sh = self._assign_sharded(mesh, n)
+            qd, b = mesh_lib.shard_queries(mesh, np.asarray(q, np.float32))
+            r = min(self._rerank_depth(k, p), max(n, 1))
+            topk_mode = p.get("topk_mode",
+                              self.params.get("topk_mode", "auto"))
+            fused = p.get("fused_rerank",
+                          self.params.get("fused_rerank", True))
+            rerank = self._exact_rerank_enabled(p)
+            if fused and rerank:
+                base, base_sqn, _ = self.store.device_buffer_sharded(mesh)
         if fused and rerank:
-            base, base_sqn, _ = self.store.device_buffer_sharded(mesh)
-            ivf_ops.note_mesh_phase("place", t_place0, time.monotonic())
             ivf_ops.note_dispatch(
                 "sharded_probe_scan_rerank" if probe_nprobe > 0
                 else "sharded_fused_scan_rerank")
@@ -748,7 +759,6 @@ class IVFPQIndex(_IVFBase):
                 nprobe=nprobe,
             )
             return self._pad_to_k(_host(scores)[:b], _host(ids)[:b], k)
-        ivf_ops.note_mesh_phase("place", t_place0, time.monotonic())
         ivf_ops.note_dispatch("sharded_scan")
         cand_s, cand_i = sharded_int8_search(
             mesh, a8, scale, vsq, valid_sh, qd, max(r, k), metric,
@@ -806,10 +816,11 @@ class IVFPQIndex(_IVFBase):
         """Probe regime: ([B, r] scores, [B, r] docids, -1 for masked)
         from the bucket-grouped int8 residuals, republished after any
         absorb."""
-        self._publish()
+        with ivf_ops.span("index.prepare"):
+            self._publish()
+            valid = self._valid_device(valid_mask, self.store.count)
         nprobe = self._nprobe(p)
         r = min(self._rerank_depth(k, p), self._cap * nprobe, 2048)
-        valid = self._valid_device(valid_mask, self.store.count)
         # the reference takes its Pallas kernel on the accelerator and its
         # XLA loop elsewhere. On a GPU both values launch the kernel, as
         # both scan_kernel values do; on the CPU "pallas" runs the
@@ -832,10 +843,12 @@ class IVFPQIndex(_IVFBase):
     def _rerank(self, q: np.ndarray, cand_i: torch.Tensor, k: int
                 ) -> tuple[np.ndarray, np.ndarray]:
         ivf_ops.note_dispatch("rerank")
-        scores, ids = rerank_against_store(
-            self.store, q, cand_i, min(k, int(cand_i.shape[1])), self.metric,
-        )
-        return self._pad_to_k(_host(scores), _host(ids), k)
+        with ivf_ops.span("scan.rerank", device=True):
+            scores, ids = rerank_against_store(
+                self.store, q, cand_i, min(k, int(cand_i.shape[1])),
+                self.metric,
+            )
+        return self._fetch(scores, ids, k)
 
     def _publish_buckets(self, ids: np.ndarray) -> None:
         """Decode the PQ codes per cluster into int8 residual buckets with

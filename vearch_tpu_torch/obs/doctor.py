@@ -131,8 +131,8 @@ def _check_obs_docs() -> tuple[bool | None, str]:
     doc = os.path.join(repo_root, "docs", "OBSERVABILITY.md")
     if not os.path.exists(doc):
         return None, "docs/OBSERVABILITY.md not present; skipped"
-    failures = rules_obs.drift_failures(
-        *rules_obs.source_names(pkg_root), doc
+    failures = rules_obs.drift_failures_over(
+        *rules_obs.source_names(pkg_root), rules_obs.doc_paths()
     )
     if failures:
         return False, "; ".join(failures[:5])

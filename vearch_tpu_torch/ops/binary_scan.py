@@ -20,10 +20,10 @@ The chain over three representations of the same rows:
 three. Stage 0 selects through `ops/ivf.select_topk_scores` over the
 [B, N] score matrix: at B=1024 x 1M rows that matrix is 4.1 GB, which the
 reference also materialises (its note at ops/ivf.py:385-389 found
-chunking slower). Each step runs inside a
-`torch.profiler.record_function` range named in STAGE_RANGES, so a
-profiler trace splits a search's device time by stage; with no profiler
-running a range costs a few microseconds.
+chunking slower). Each step runs inside a device span (`ops/ivf.span`)
+named in STAGE_RANGES, so a profiler trace splits a search's device time
+by stage and a traced request's `stream_ms` times each on the stream;
+with neither a span costs one check.
 """
 
 from __future__ import annotations
@@ -33,9 +33,8 @@ import threading
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
-
 from vearch_tpu_torch.engine.types import MetricType
+from vearch_tpu_torch.ops import ivf as ivf_ops
 from vearch_tpu_torch.ops import perf_model
 from vearch_tpu_torch.ops.distance import NEG_INF, sqnorms, stable_topk
 from vearch_tpu_torch.ops.ivf import (
@@ -44,9 +43,9 @@ from vearch_tpu_torch.ops.ivf import (
     unpack_int4,
 )
 
-#: profiler ranges of the chain's steps, in order
-STAGE_RANGES = ("binary.unpack", "binary.matmul", "binary.epilogue",
-                "binary.select", "binary.rescore", "binary.rerank")
+#: spans of the chain's steps, in order (stage 0 is the first four)
+STAGE_RANGES = ("scan.unpack", "scan.matmul", "scan.epilogue",
+                "scan.select", "scan.rescore", "scan.rerank")
 
 
 def pack_sign_rows(
@@ -97,13 +96,13 @@ def _binary_scores(
     """[B, N_pad] f32 stage-0 scores, -inf where masked. The epilogue
     runs in place on the product, so the [B, N] matrix exists once; each
     step rounds as the reference's -(|q|^2 - 2 dots + vsq) does."""
-    with record_function("binary.unpack"):
+    with ivf_ops.span("scan.unpack", device=True):
         signs = unpack_bits_pm1(planes)  # [N, d_pad] bf16 (transient)
-    with record_function("binary.matmul"):
+    with ivf_ops.span("scan.matmul", device=True):
         qp = F.pad(queries.float(), (0, signs.shape[1] - queries.shape[1]))
         scores = _bf16_product(qp.to(torch.bfloat16), signs)
     del signs
-    with record_function("binary.epilogue"):
+    with ivf_ops.span("scan.epilogue", device=True):
         scores.mul_(row_scale[None, :])
         if metric is MetricType.L2:
             scores.mul_(-2.0).add_(sqnorms(queries)[:, None])
@@ -127,7 +126,7 @@ def binary_scan_candidates(
     good for selection only; the next stages restore the order."""
     scores = _binary_scores(queries.float(), planes, row_scale, row_vsq,
                             valid, metric)
-    with record_function("binary.select"):
+    with ivf_ops.span("scan.select", device=True):
         return select_topk_scores(scores, r, topk_mode)
 
 
@@ -145,7 +144,7 @@ def _mirror_rescore(
     rows, or their packed int4 rows unpacked (gather, widen, batched
     product with the bf16-rounded queries at f32: exact products) and
     keep the top r1."""
-    with record_function("binary.rescore"):
+    with ivf_ops.span("scan.rescore", device=True):
         safe = torch.clamp(cand_i, 0, approx8.shape[0] - 1).long()
         rows = approx8[safe]  # [B, r0, w]
         rows = (rows if storage == "int8" else unpack_int4(rows)).float()
@@ -213,7 +212,7 @@ def binary_refine_rerank(
     _, cand_i = binary_refine_candidates(
         queries, planes, row_scale, row_vsq, approx8, m_scale, m_vsq,
         valid, r0, r1, scan_metric, topk_mode, storage)
-    with record_function("binary.rerank"):
+    with ivf_ops.span("scan.rerank", device=True):
         return exact_rerank(queries.to(base.dtype), cand_i, base,
                             base_sqnorm, k, rerank_metric)
 

@@ -218,11 +218,18 @@ def int8_blockmax_scan(
         raise ValueError(f"N_pad={n_pad} must be a multiple of {BLOCK}")
     nblk = n_pad // BLOCK
     queries = queries.float()
-    bmax = int8_blockmax_stage1(
-        queries.to(torch.bfloat16).contiguous(), approx8, scale, vsq,
-        valid, sqnorms(queries).contiguous(), l2)
+    with ivf_ops.span("scan.blockmax", device=True):
+        bmax = int8_blockmax_stage1(
+            queries.to(torch.bfloat16).contiguous(), approx8, scale, vsq,
+            valid, sqnorms(queries).contiguous(), l2)
     r_eff = min(r, n_pad)
     nb_sel = min(2 * max(32, r_eff // 4) + 8, nblk)
     rr = min(r_eff, nb_sel * BLOCK)
-    return blockmax_stage2(queries, approx8, scale, vsq, valid, bmax,
-                           nb_sel, rr, l2)
+    with ivf_ops.span("scan.refine", device=True):
+        return blockmax_stage2(queries, approx8, scale, vsq, valid, bmax,
+                               nb_sel, rr, l2)
+
+
+# The span API's home, ops/ivf.py, imports this module's kernels at its
+# top, so it is bound here, after every name it imports from this module.
+from vearch_tpu_torch.ops import ivf as ivf_ops  # noqa: E402

@@ -42,7 +42,8 @@ cache (index/hbm_cache.py) with `cached_bucket_scan` — through the
 probe-dots Hopper kernel on a CUDA tensor — and reranks against
 host-gathered raw rows with `exact_rerank_gathered`. `note_tier_phase`
 records the tier's host-side windows (slab fetch, prefetch scheduling,
-pin recompute) when a phase ledger is installed.
+pin recompute) in the phase ledger when one is installed, and on the
+request's capture.
 
 All selections take the lower index first among ties (`stable_topk`),
 which is the `jax.lax.top_k` order.
@@ -52,6 +53,16 @@ ledger, the optional dispatch observer (obs/accounting installs one, so
 per-space dispatch counts reconcile with the ledger) and the calling
 thread's per-request capture (`begin_capture` / `capture_mark` /
 `end_capture`), which the engine folds into `trace["dispatches"]`.
+
+Spans: `span(name)` is the one way the search path names a stretch of
+its work. Under a running `torch.profiler` it opens a `record_function`
+range of that name, so the device trace's kernels and idle gaps fall
+under the program's names; on a traced request (a capture on the
+thread) it adds a (name, start, end) host window to the capture, which
+the engine turns into `_phase_spans` rows. A `device=True` span of a
+traced request on a CUDA device also records a timing event pair on the
+current stream, read into `trace["stream_ms"]`. With neither, a span
+costs one check. docs/OBSERVABILITY_TORCH.md lists the names.
 """
 
 from __future__ import annotations
@@ -60,6 +71,7 @@ import threading
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.profiler import record_function
 
 from vearch_tpu_torch.engine.types import MetricType
@@ -105,21 +117,33 @@ def set_dispatch_observer(fn) -> None:
 # trace reports which search programs this request ran and how long each
 # took on the host's clock, without touching the index call sites. A
 # tag's window closes at the next note_dispatch or at capture_mark() /
-# end_capture().
-_capture_tls = threading.local()
+# end_capture(): the `kernel.{tag}` rows made of these windows are host
+# time between two dispatch notes, not device time (the name is the
+# reference's).
+class _CaptureLocal(threading.local):
+    # the class default makes a thread that never captured read None
+    # without raising: a span's one check on an untraced path
+    capture = None
+
+
+_capture_tls = _CaptureLocal()
 
 
 class DispatchCapture:
-    __slots__ = ("events", "mesh_phases", "tier_phases", "stage_phases")
+    __slots__ = ("events", "spans", "stream", "stream_device")
 
-    def __init__(self) -> None:
+    def __init__(self, device=None) -> None:
         # [tag, start_monotonic_s, end_monotonic_s | None]
         self.events: list[list] = []
-        # (name, start, end) host windows of the mesh path (shard
-        # placement), the tiered storage path and the three-stage chain
-        self.mesh_phases: list[tuple[str, float, float]] = []
-        self.tier_phases: list[tuple[str, float, float]] = []
-        self.stage_phases: list[tuple[str, float, float]] = []
+        # [name, start_monotonic_s, end_monotonic_s | None] host windows
+        # of the request's spans, in the order they opened
+        self.spans: list[list] = []
+        # (name, start event, end event) of its device spans, kept only
+        # where `stream_device` is set (the engine's device is CUDA)
+        self.stream: list[tuple] = []
+        self.stream_device = (
+            torch.device(device) if device is not None
+            and torch.device(device).type == "cuda" else None)
 
     def note(self, tag: str) -> None:
         now = time.monotonic()
@@ -136,21 +160,34 @@ class DispatchCapture:
     def tags(self) -> list[str]:
         return [e[0] for e in self.events]
 
+    def stream_ms(self) -> dict[str, float]:
+        """{span name: ms} on the stream from each device span's start to
+        its last operation, summed by name; pairs not yet complete (a
+        search that raised before its answer reached the host) are left
+        out."""
+        out: dict[str, float] = {}
+        for name, start, end in self.stream:
+            if end.query():
+                out[name] = out.get(name, 0.0) + start.elapsed_time(end)
+        return out
 
-def begin_capture() -> DispatchCapture:
-    cap = DispatchCapture()
+
+def begin_capture(device=None) -> DispatchCapture:
+    """Install a capture on the calling thread; `device` (the engine's)
+    says whether device spans time the CUDA stream."""
+    cap = DispatchCapture(device)
     _capture_tls.capture = cap
     return cap
 
 
 def capture_mark() -> None:
-    cap = getattr(_capture_tls, "capture", None)
+    cap = _capture_tls.capture
     if cap is not None:
         cap.mark()
 
 
 def end_capture() -> DispatchCapture | None:
-    cap = getattr(_capture_tls, "capture", None)
+    cap = _capture_tls.capture
     _capture_tls.capture = None
     if cap is not None:
         cap.mark()
@@ -164,25 +201,75 @@ def note_dispatch(tag: str) -> None:
     obs = _dispatch_observer
     if obs is not None:
         obs(tag)
-    cap = getattr(_capture_tls, "capture", None)
+    cap = _capture_tls.capture
     if cap is not None:
         cap.note(tag)
 
 
-def note_mesh_phase(name: str, t0: float, t1: float) -> None:
-    """Record a host window of the mesh serving path (shard placement,
-    mask upload) on the calling thread's capture (a no-op without one)."""
-    cap = getattr(_capture_tls, "capture", None)
-    if cap is not None:
-        cap.mesh_phases.append((name, t0, t1))
+class _Span:
+    """An open span: a profiler range, a capture window, or both."""
+
+    __slots__ = ("name", "cap", "device", "rf", "row", "start")
+
+    def __init__(self, name: str, cap, device: bool, profiled: bool):
+        self.name, self.cap = name, cap
+        self.device = device and cap is not None \
+            and cap.stream_device is not None
+        self.rf = record_function(name) if profiled else None
+        self.row = self.start = None
+
+    def __enter__(self):
+        if self.rf is not None:
+            self.rf.__enter__()
+        if self.device:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record(torch.cuda.current_stream(
+                self.cap.stream_device))
+        self.row = [self.name, time.monotonic(), None]
+        if self.cap is not None:
+            self.cap.spans.append(self.row)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.row[2] = time.monotonic()
+        if self.start is not None:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(torch.cuda.current_stream(self.cap.stream_device))
+            self.cap.stream.append((self.name, self.start, end))
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+    @property
+    def ms(self) -> float:
+        """The span's host window in ms, once closed."""
+        return round((self.row[2] - self.row[1]) * 1e3, 3)
 
 
-def note_stage_phase(name: str, t0: float, t1: float) -> None:
-    """Record a host window of the three-stage chain on the calling
-    thread's capture (a no-op without one)."""
-    cap = getattr(_capture_tls, "capture", None)
-    if cap is not None:
-        cap.stage_phases.append((name, t0, t1))
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+def span(name: str, device: bool = False):
+    """A context manager naming the work inside it `name` (see the
+    module's docstring): a profiler range while a profiler runs, and a
+    window on the thread's capture of a traced request. `device=True`
+    marks a stage of device work, whose stream time a traced request on
+    a CUDA device also records. Without either it does nothing."""
+    profiled = _autograd_profiler._is_profiler_enabled
+    cap = _capture_tls.capture
+    if cap is None and not profiled:
+        return _NO_SPAN
+    return _Span(name, cap, device, profiled)
 
 
 # Optional tier-phase ledger: when a list is installed here, the tiered
@@ -200,13 +287,15 @@ def set_tier_phase_ledger(ledger: list | None) -> None:
 def note_tier_phase(name: str, t0: float, t1: float) -> None:
     """Record a host-side window of the tiered-storage serving path
     (demand slab fetch, prefetch scheduling, pin-set recompute) in the
-    ledger and on the calling thread's capture."""
+    ledger and, as a `tier.{name}` row, on the calling thread's capture.
+    The window is known only once it has closed (the pin row is kept
+    only when the pin set changed), so it opens no profiler range."""
     with _ledger_lock:
         if _tier_phase_ledger is not None:
             _tier_phase_ledger.append((name, t0, t1))
-    cap = getattr(_capture_tls, "capture", None)
+    cap = _capture_tls.capture
     if cap is not None:
-        cap.tier_phases.append((name, t0, t1))
+        cap.spans.append([f"tier.{name}", t0, t1])
 
 
 def coarse_dots(queries: torch.Tensor, centroids: torch.Tensor
@@ -375,15 +464,18 @@ def _select_topk(
              or (topk_mode == "auto" and nblk >= nb * 4))
     )
     if not use_block:
-        return select_topk_scores(
-            _int8_scores(queries, approx8, scale, vsq, valid, l2), r,
-            "exact")
+        with span("scan.matmul", device=True):
+            scores = _int8_scores(queries, approx8, scale, vsq, valid, l2)
+        with span("scan.select", device=True):
+            return select_topk_scores(scores, r, "exact")
     nb = min(2 * nb + 8, nblk)
-    bmax = int8_blockmax_stage1(
-        queries.to(torch.bfloat16).contiguous(), approx8, scale, vsq,
-        valid, sqnorms(queries).contiguous(), l2)
-    return blockmax_stage2(queries, approx8, scale, vsq, valid, bmax, nb,
-                           min(r, nb * BLOCK), l2)
+    with span("scan.blockmax", device=True):
+        bmax = int8_blockmax_stage1(
+            queries.to(torch.bfloat16).contiguous(), approx8, scale, vsq,
+            valid, sqnorms(queries).contiguous(), l2)
+    with span("scan.refine", device=True):
+        return blockmax_stage2(queries, approx8, scale, vsq, valid, bmax,
+                               nb, min(r, nb * BLOCK), l2)
 
 
 SELECT_CHUNK = 128  # queries per stage-2 gather of `select_topk_scores`
@@ -455,11 +547,10 @@ def int8_scan_candidates(
                         topk_mode, metric is MetricType.L2)
 
 
-#: profiler ranges of the int4 full scan, in order (`int8_scan_rerank`
-#: with storage "int4"): chip_smoke.py splits a search's device time by
-#: them
-INT4_RANGES = ("int4.unpack", "int4.matmul", "int4.epilogue",
-               "int4.select", "rerank")
+#: spans of the int4 full scan, in order (`int8_scan_rerank` with storage
+#: "int4"): chip_smoke.py splits a search's device time by their ranges
+INT4_RANGES = ("scan.unpack", "scan.matmul", "scan.epilogue",
+               "scan.select", "scan.rerank")
 
 
 def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
@@ -499,18 +590,18 @@ def int4_scan_candidates(
         raise RuntimeError("the int4 scan needs exact f32 products: "
                            "torch.backends.cuda.matmul.allow_tf32 is on")
     queries = queries.float()
-    with record_function("int4.unpack"):
+    with span("scan.unpack", device=True):
         vals = unpack_int4(packed4).float()  # [N, d]
-    with record_function("int4.matmul"):
+    with span("scan.matmul", device=True):
         scores = torch.matmul(queries.to(torch.bfloat16).float(), vals.T)
     del vals
-    with record_function("int4.epilogue"):
+    with span("scan.epilogue", device=True):
         scores.mul_(scale[None, :])
         if metric is MetricType.L2:
             scores.mul_(-2.0).add_(sqnorms(queries)[:, None])
             scores.add_(vsq[None, :]).neg_()
         scores.masked_fill_(~valid[None, :], NEG_INF)
-    with record_function("int4.select"):
+    with span("scan.select", device=True):
         return select_topk_scores(scores, r, topk_mode)
 
 
@@ -691,6 +782,6 @@ def int8_scan_rerank(
         else int4_scan_candidates
     _, cand_i = scan(queries, approx8, row_scale, row_vsq, valid, r,
                      scan_metric, topk_mode)
-    with record_function("rerank"):
+    with span("scan.rerank", device=True):
         return exact_rerank(queries.to(base.dtype), cand_i, base,
                             base_sqnorm, k, rerank_metric)

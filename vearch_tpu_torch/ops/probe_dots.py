@@ -27,6 +27,7 @@ import torch
 from vearch_tpu_torch.ops import perf_model
 from vearch_tpu_torch.ops._cuda_build import CudaLibrary, count_launch
 from vearch_tpu_torch.ops.distance import NEG_INF, sqnorms, stable_topk
+from vearch_tpu_torch.ops import ivf as ivf_ops
 from vearch_tpu_torch.ops.ivf import coarse_dots, select_probes
 
 PLAIN_CHUNK = 32  # queries per gather in the plain version
@@ -215,28 +216,32 @@ def ivfpq_probe_search(
     queries = queries.float()
     b = queries.shape[0]
     cap = bucket_resid8.shape[1]
-    qc = coarse_dots(queries, centroids)  # [B, nlist], reused below
-    if probes is None:
-        probes = select_probes(qc, centroids, nprobe)  # [B, nprobe]
+    with ivf_ops.span("scan.coarse", device=True):
+        qc = coarse_dots(queries, centroids)  # [B, nlist], reused below
+        if probes is None:
+            probes = select_probes(qc, centroids, nprobe)  # [B, nprobe]
     nprobe = probes.shape[1]
-    dots8 = ivf_probe_dots(queries.to(torch.bfloat16).contiguous(),
-                           probes.to(torch.int32).contiguous(),
-                           bucket_resid8, bucket_lens)  # [B, nprobe, cap]
-    pc = torch.clamp(probes, min=0).long()
-    qc_p = torch.gather(qc, 1, pc)
-    scale_p = bucket_scale[pc]
-    dots = qc_p[:, :, None] + scale_p[:, :, None] * dots8
-    ids_p = bucket_ids[pc]  # [B, nprobe, cap]
-    if l2:
-        scores = -(sqnorms(queries)[:, None, None] - 2.0 * dots
-                   + bucket_vsq[pc])
-    else:
-        scores = dots
-    ok = ((probes >= 0)[:, :, None] & (ids_p >= 0)
-          & valid[torch.clamp(ids_p, min=0).long()])
-    scores = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
-    top_s, pos = stable_topk(scores.reshape(b, nprobe * cap),
-                             min(r, nprobe * cap))
-    ids = torch.gather(ids_p.reshape(b, nprobe * cap), 1, pos)
-    return top_s, torch.where(torch.isfinite(top_s), ids,
-                              torch.full_like(ids, -1))
+    with ivf_ops.span("scan.probe_dots", device=True):
+        dots8 = ivf_probe_dots(queries.to(torch.bfloat16).contiguous(),
+                               probes.to(torch.int32).contiguous(),
+                               bucket_resid8, bucket_lens)  # [B, nprobe, cap]
+    with ivf_ops.span("scan.assemble", device=True):
+        pc = torch.clamp(probes, min=0).long()
+        qc_p = torch.gather(qc, 1, pc)
+        scale_p = bucket_scale[pc]
+        dots = qc_p[:, :, None] + scale_p[:, :, None] * dots8
+        ids_p = bucket_ids[pc]  # [B, nprobe, cap]
+        if l2:
+            scores = -(sqnorms(queries)[:, None, None] - 2.0 * dots
+                       + bucket_vsq[pc])
+        else:
+            scores = dots
+        ok = ((probes >= 0)[:, :, None] & (ids_p >= 0)
+              & valid[torch.clamp(ids_p, min=0).long()])
+        scores = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
+    with ivf_ops.span("scan.select", device=True):
+        top_s, pos = stable_topk(scores.reshape(b, nprobe * cap),
+                                 min(r, nprobe * cap))
+        ids = torch.gather(ids_p.reshape(b, nprobe * cap), 1, pos)
+        return top_s, torch.where(torch.isfinite(top_s), ids,
+                                  torch.full_like(ids, -1))
