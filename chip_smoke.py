@@ -17,7 +17,13 @@ Phases:
    - block-max scan: block maxima within one bf16 ulp of the plain
      PyTorch version, candidate ids equal except where explained (f32
      score ties, or a block whose selection flipped at the bf16 rounding
-     boundary);
+     boundary); stage 2 from the same maxima (`compare_stage2`, also over
+     `stage2_cases`): every re-scored entry within its f32 bound of the
+     exact score, top-r ids equal to the plain stage 2's except at score
+     ties, one launch of its kernel a call, and its times (the kernel
+     alone, the whole stage, the top-r, the plain stage, the plain
+     gather + widen + bmm as the library yardstick, the bound, the share
+     of (query tile, block) pairs computed, the peak bytes);
    - probe dots: every dot within 2*d f32 ulps of the sum of the
      absolute products (the bound on two summation orders of d exact
      products), zeros for padded probe slots and ids >= nlist, and
@@ -438,6 +444,34 @@ def small_cases():
     return out
 
 
+def stage2_cases():
+    """Stage-2 cases beyond small_cases(), where the selection prunes
+    (nb_sel < nblk) so the kernel skips blocks: one query (the 8-wide
+    tile), a batch that no tile width divides, IP, whole blocks masked
+    out, and a batch of two ragged 128-wide tiles with every block
+    selected (name, arrays, r, l2)."""
+    out = []
+    base, q8, sc, vs = mirror_case(200 * 512, 128, 31)
+    rng = np.random.default_rng(32)
+    q = base[rng.choice(200 * 512, 1, replace=False)] + 0.01
+    out.append(("b1_prune", q, q8, sc, vs, np.ones(200 * 512, bool), 64,
+                True))
+    q = base[rng.choice(200 * 512, 77, replace=False)] + 0.1
+    out.append(("b77_prune_ip", q, q8, sc, vs, np.ones(200 * 512, bool),
+                128, False))
+    dead = np.ones(200 * 512, bool).reshape(200, 512)
+    dead[::3] = False  # every third block wholly masked
+    dead[1::7, ::2] = False
+    q = base[rng.choice(200 * 512, 20, replace=False)] + 0.01
+    out.append(("dead_blocks", q, q8, sc, vs, dead.reshape(-1), 32, True))
+    base, q8, sc, vs = mirror_case(60 * 512, 64, 33)
+    q = np.random.default_rng(34).standard_normal((130, 64)).astype(
+        np.float32)
+    out.append(("b130_all_selected", q, q8, sc, vs, np.ones(60 * 512, bool),
+                64, True))
+    return out
+
+
 def bf16_ulp(x):
     import torch
 
@@ -488,9 +522,7 @@ def compare_case(name, q, a8, sc, vs, va, r, l2, timing=True):
     max_abs = float(err.max()) if err.numel() else 0.0
     n_off = int((err > 0).sum())
     # candidates through the same stage 2 from each stage 1
-    r_eff = min(r, n_pad)
-    nb_sel = min(2 * max(32, r_eff // 4) + 8, nblk)
-    rr = min(r_eff, nb_sel * bms.BLOCK)
+    nb_sel, rr = stage2_select(n_pad, r)
     qf = q.float()
     sk, ik = bms.blockmax_stage2(qf, a8, sc, vs, va, bk, nb_sel, rr, l2)
     sp, ip = bms.blockmax_stage2(qf, a8, sc, vs, va, bp, nb_sel, rr, l2)
@@ -515,8 +547,10 @@ def compare_case(name, q, a8, sc, vs, va, r, l2, timing=True):
         boundary[i] = bool((near_k & near_p).all())
     explained = tie | (diff & boundary[:, None])
     unexplained = int((diff & ~explained).sum())
+    stage2 = compare_stage2(name, q, a8, sc, vs, va, bk, r, l2, timing)
     res = {
         "case": name, "B": b, "N_pad": n_pad, "d": d, "r": r, "l2": l2,
+        "stage2": stage2,
         "bmax_max_abs_err": max_abs, "bmax_entries_off_by_1ulp": n_off,
         "id_mismatches": int(diff.sum()), "explained_by_score_tie":
         int(tie.sum()), "explained_by_boundary_selection":
@@ -545,11 +579,188 @@ def compare_case(name, q, a8, sc, vs, va, r, l2, timing=True):
     return res
 
 
+def stage2_select(n_pad, r):
+    """(nb_sel, rr) of a block-max scan over n_pad rows at depth r."""
+    nb_sel = perf_model.blockmax_selected_blocks(r, n_pad)
+    return nb_sel, min(r, n_pad, nb_sel * perf_model.BLOCK)
+
+
+def stage2_exact(qb, qsq, a64, sc, vs, rows, l2):
+    """Exact (float64) scores of the rows `rows` [b, S] of the mirror
+    (a64: its rows as float64) for bf16 queries qb [b, d], and the f32
+    bound on a kernel's distance from them: the dot of d exact products
+    within 2*d f32 ulps of the sum of their absolute values (any
+    summation order; the bound chip_smoke holds the probe kernel to),
+    then one rounding of x = dot*scale and, for L2,
+    one of |q|^2 - 2x and one of the sum with |v|^2."""
+    import torch
+
+    qd = qb.double()
+    dots = torch.gather(qd @ a64.T, 1, rows)
+    absd = torch.gather(qd.abs() @ a64.abs().T, 1, rows)
+    s = sc.double()[rows]
+    x = dots * s
+    e_acc = 2 * qb.shape[1] * 2 * F32_U * absd * s + F32_U * x.abs()
+    if not l2:
+        return x, e_acc
+    y = qsq.double()[:, None] - 2 * x
+    z = y + vs.double()[rows]
+    return -z, 2 * e_acc + F32_U * (y.abs() + z.abs())
+
+
+def compare_stage2(name, q, a8, sc, vs, va, bmax, r, l2, timing=True):
+    """The stage-2 kernel against the plain stage 2 on the card, from the
+    same stage-1 maxima: every re-scored entry within stage2_exact's f32
+    bound of the exact score (-inf exactly where masked), the top-r ids
+    equal except at score ties, -1 exactly where the score is not
+    finite, one launch of the kernel a call and none of stage 1's.
+    Returns a result dict; raises on disagreement."""
+    import torch
+
+    from vearch_tpu_torch.ops import blockmax_scan as bms
+    from vearch_tpu_torch.ops.distance import sqnorms, stable_topk
+
+    b, d = q.shape
+    n_pad = a8.shape[0]
+    nblk = n_pad // bms.BLOCK
+    nb_sel, rr = stage2_select(n_pad, r)
+    qf = q.float()
+    qb, qsq = qf.to(torch.bfloat16).contiguous(), sqnorms(qf).contiguous()
+    args = (qf, a8, sc, vs, va, bmax, nb_sel, rr, l2)
+    n1, n2 = bms.int8_blockmax_stage1.launches, \
+        bms.blockmax_stage2_rescore.launches
+    ks, ki = bms.blockmax_stage2(*args)
+    check(bms.blockmax_stage2_rescore.launches == n2 + 1,
+          f"{name}: stage 2 did not launch its kernel once")
+    check(bms.int8_blockmax_stage1.launches == n1,
+          f"{name}: stage 2 moved stage 1's launch counter")
+    ps, pi = bms.blockmax_stage2_reference(*args)
+    _, top = stable_topk(bmax, nb_sel)
+    scores = bms.blockmax_stage2_rescore(qb, a8, sc, vs, va, qsq, top, l2)
+    torch.cuda.synchronize()
+    worst, plain_worst = 0.0, 0.0
+    offs = torch.arange(bms.BLOCK, device=q.device)
+    a64 = a8.double()
+    for lo in range(0, b, 64):
+        hi = min(lo + 64, b)
+        rows = (top[lo:hi, :, None] * bms.BLOCK + offs).reshape(hi - lo, -1)
+        exact, tol = stage2_exact(qb[lo:hi], qsq[lo:hi], a64, sc, vs, rows,
+                                  l2)
+        ok = va[rows]
+        got = scores[lo:hi]
+        check(bool(torch.isneginf(got[~ok]).all()),
+              f"{name}: a masked row scored above -inf")
+        check(bool(torch.isfinite(got[ok]).all()),
+              f"{name}: a valid row scored non-finite")
+        ratio = ((got.double() - exact).abs() / tol)[ok]
+        if ratio.numel():
+            worst = max(worst, float(ratio.max()))
+        # the plain scores of the same rows, as the reference computes them
+        dots = torch.bmm(a8[rows].float(), qb[lo:hi].float()[:, :, None]
+                         )[..., 0] * sc[rows]
+        plain = -(qsq[lo:hi, None] - 2.0 * dots + vs[rows]) if l2 else dots
+        pr = ((plain.double() - exact).abs() / tol)[ok]
+        if pr.numel():
+            plain_worst = max(plain_worst, float(pr.max()))
+    check(worst <= 1.0, f"{name}: a score beyond its f32 bound "
+          f"({worst:.3f} of it)")
+    fin = torch.isfinite(ks)
+    check(torch.equal(fin, torch.isfinite(ps)),
+          f"{name}: the finite pattern of the top-r differs")
+    check(bool((ki[~fin] == -1).all() and (ki[fin] >= 0).all()),
+          f"{name}: ids do not follow the finite scores")
+    diff = ki != pi
+    tie = diff & torch.isclose(ks, ps, rtol=SCORE_TOL[0], atol=SCORE_TOL[1])
+    unexplained = int((diff & ~tie).sum())
+    check(unexplained == 0, f"{name}: {unexplained} stage-2 id mismatches "
+          f"not explained by a score tie")
+    fin_s = fin & (ki == pi)
+    _, active = bms.stage2_maps(top, nblk, bms.query_tile(b, d))
+    res = {
+        "case": name, "B": b, "N_pad": n_pad, "d": d, "nb_sel": nb_sel,
+        "rr": rr, "l2": l2, "worst_share_of_bound": worst,
+        "plain_worst_share_of_bound": plain_worst,
+        "topk_max_abs_diff": float((ks[fin_s] - ps[fin_s]).abs().max())
+        if bool(fin_s.any()) else 0.0,
+        "id_mismatches": int(diff.sum()), "explained_by_score_tie":
+        int(tie.sum()), "unexplained_mismatches": unexplained,
+        "tile_block_pairs_computed": float(active.float().mean()),
+    }
+    if timing:
+        res.update(time_stage2(q, a8, sc, vs, va, bmax, top, nb_sel, rr,
+                               l2))
+    print("stage2_case " + json.dumps(res), flush=True)
+    return res
+
+
+def time_stage2(q, a8, sc, vs, va, bmax, top, nb_sel, rr, l2) -> dict:
+    """Stage 2's times on the card: the re-score kernel alone (with its
+    maps), the whole of blockmax_stage2 (selection, kernel, top-r), the
+    top-r alone, the plain version, and as the library yardstick the
+    plain version's gather + widen + f32 bmm (the work the kernel
+    replaces); the bound of the kernel's work and the device bytes
+    stage 2 allocates at its peak."""
+    import torch
+
+    from vearch_tpu_torch.ops import blockmax_scan as bms
+    from vearch_tpu_torch.ops.distance import sqnorms
+
+    b, d = q.shape
+    n_pad = a8.shape[0]
+    nblk = n_pad // bms.BLOCK
+    s = nb_sel * bms.BLOCK
+    qf = q.float()
+    qb, qsq = qf.to(torch.bfloat16).contiguous(), sqnorms(qf).contiguous()
+    args = (qf, a8, sc, vs, va, bmax, nb_sel, rr, l2)
+    out = {"rescore_ms": median_ms(lambda: bms.blockmax_stage2_rescore(
+        qb, a8, sc, vs, va, qsq, top, l2))}
+    scores = bms.blockmax_stage2_rescore(qb, a8, sc, vs, va, qsq, top, l2)
+    out["topk_ms"] = median_ms(lambda: bms.stage2_topk(scores, top, rr))
+    del scores
+    out["stage2_ms"] = median_ms(lambda: bms.blockmax_stage2(*args))
+    out["plain_ms"] = median_ms(
+        lambda: bms.blockmax_stage2_reference(*args), reps=3, warm=1)
+    words = a8.view(nblk, bms.BLOCK * d).view(torch.int64)
+    qbf = qb.float()
+
+    def library():
+        for lo in range(0, b, bms.STAGE2_CHUNK):
+            blocks = top[lo:lo + bms.STAGE2_CHUNK]
+            vecs = torch.index_select(words, 0, blocks.reshape(-1)).view(
+                torch.int8).reshape(blocks.shape[0], s, d).float()
+            torch.bmm(vecs, qbf[lo:lo + bms.STAGE2_CHUNK, :, None])
+
+    out["library_ms"] = median_ms(library, reps=3, warm=1)
+    # the kernel's work: 2 d products a selected (query, row); each input
+    # byte once (the rows, scale, |v|^2 and mask of the blocks some query
+    # selected, the queries, the maps) and each score written once
+    used = int(torch.unique(top).numel()) * bms.BLOCK
+    tiles = -(-b // bms.query_tile(b, d))
+    flops = 2.0 * d * b * s
+    nbytes = (used * (d + 9) + b * (d * 2 + 4) + nblk * b * 4
+              + tiles * nblk + b * s * 4)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    out["bound_ms"] = max(t_ops, t_bytes)
+    out["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bms.blockmax_stage2(*args)
+    torch.cuda.synchronize()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    return out
+
+
 def phase_kernels(dev):
     import torch
 
     out = []
     for name, q, q8, sc, vs, va, r, l2 in small_cases():
+        t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+             for x in (q.astype(np.float32), q8, sc, vs, va)]
+        out.append(compare_case(name, *t, r, l2))
+    for name, q, q8, sc, vs, va, r, l2 in stage2_cases():
         t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
              for x in (q.astype(np.float32), q8, sc, vs, va)]
         out.append(compare_case(name, *t, r, l2))
@@ -4704,6 +4915,7 @@ def kernel_counters() -> dict:
     from vearch_tpu_torch.ops import probe_dots as pd
 
     return {"int8_blockmax_scan": bms.int8_blockmax_stage1,
+            "blockmax_stage2": bms.blockmax_stage2_rescore,
             "ivf_probe_dots": pd.ivf_probe_dots}
 
 
@@ -4879,6 +5091,21 @@ def main() -> int:
          "max_abs_err": res["bmax_max_abs_err"], "ms": res["kernel_ms"],
          "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
          "bound_by": res["bound_by"], "library_ms": res["library_ms"]},
+        {"name": "blockmax_stage2", "route": "cuda",
+         "design": "the stage-1 mainloop (wgmma bf16, int8 rows converted "
+                   "in registers) over the blocks its query tile "
+                   "selected; the epilogue stores each selected "
+                   "query's f32 scores in the plain version's layout",
+         "source": "vearch_tpu_torch/csrc/blockmax_scan.cu",
+         "replaces": "none (XLA ops in vearch_tpu/ops/pallas_kernels.py "
+                     "_stage2)",
+         "launches": main_res["launches"]["blockmax_stage2"],
+         "launches_by_path": launches_by_path(
+             main_res, paths, "blockmax_stage2"),
+         **{k: res["stage2"][k] for k in (
+             "worst_share_of_bound", "rescore_ms", "stage2_ms", "topk_ms",
+             "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "tile_block_pairs_computed", "peak_bytes")}},
         {"name": "ivf_probe_dots", "route": "cuda",
          "design": "pairs sorted by bucket on the device; a CTA per "
                    "(bucket, 64-row tile) reads its live rows once per 64 "

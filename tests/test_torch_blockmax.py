@@ -3,8 +3,11 @@ against the reference: `int8_blockmax_scan_pallas` run in interpret mode,
 exactly as tests/test_pallas_blockmax.py runs it, and the XLA path
 `int8_scan_candidates(..., "blockmax")`. Same cases as that file.
 
-On the CPU the port's stage 1 is its plain PyTorch version; the Hopper
-kernel itself needs a card (tests/test_torch_blockmax_cuda.py).
+On the CPU the port's stages 1 and 2 are their plain PyTorch versions;
+the Hopper kernels themselves need a card
+(tests/test_torch_blockmax_cuda.py). What surrounds the stage-2 kernel
+is plain PyTorch and is tested here: the slot and tile maps it reads,
+and the top-r and id mapping over the layout it writes.
 
 Tolerances:
 - candidate ids are equal;
@@ -40,6 +43,11 @@ from vearch_tpu.ops.pallas_kernels import (  # noqa: E402
 from vearch_tpu_torch.engine.types import MetricType  # noqa: E402
 from vearch_tpu_torch.ops import blockmax_scan as bms  # noqa: E402
 from vearch_tpu_torch.ops import ivf as port_ivf  # noqa: E402
+from vearch_tpu_torch.ops.distance import (  # noqa: E402
+    NEG_INF,
+    sqnorms,
+    stable_topk,
+)
 
 D = 64
 N = 4096
@@ -197,3 +205,76 @@ def test_query_tile_width(b, d, want):
 def test_query_tile_refuses_a_d_past_the_budget():
     with pytest.raises(ValueError):
         bms.query_tile(1, 12864)
+
+
+def _distinct_blocks(rng, b, nblk, nb_sel):
+    """[b, nb_sel] int64: each row nb_sel distinct blocks, in random
+    order (a stable top-k's indices are distinct, in score order)."""
+    return torch.from_numpy(np.stack(
+        [rng.permutation(nblk)[:nb_sel] for _ in range(b)]).astype(np.int64))
+
+
+@pytest.mark.parametrize("b,nblk,nb_sel,n_tile", [
+    (1, 1954, 264, 8), (7, 8, 8, 8), (70, 40, 13, 128), (130, 79, 72, 64),
+    (300, 600, 40, 128)])
+def test_stage2_maps_invert_the_selection(b, nblk, nb_sel, n_tile):
+    """The stage-2 kernel's slot map against a brute-force inversion of
+    random selections: entry (block, query) is the block's place in the
+    query's list or -1; the tile map is 1 exactly where some query of the
+    n_tile-wide tile selected the block."""
+    top = _distinct_blocks(np.random.default_rng(b + nblk), b, nblk, nb_sel)
+    slots, active = bms.stage2_maps(top, nblk, n_tile)
+    want = np.full((nblk, b), -1, np.int32)
+    want_active = np.zeros((-(-b // n_tile), nblk), np.uint8)
+    for q in range(b):
+        for i, blk in enumerate(top[q].tolist()):
+            want[blk, q] = i
+            want_active[q // n_tile, blk] = 1
+    assert slots.dtype == torch.int32 and active.dtype == torch.uint8
+    np.testing.assert_array_equal(slots.numpy(), want)
+    np.testing.assert_array_equal(active.numpy(), want_active)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_stage2_topk_reads_the_kernel_layout(name):
+    """The stage-2 kernel's output layout, built on the CPU from the
+    plain formula (entry (q, i*512 + o): row o of block top_blocks[q, i]),
+    through the wrapper's top-r and id mapping, gives the plain stage 2's
+    candidates: ids equal, scores within the file's f32 tolerance (the
+    products are exact; only the summation order differs)."""
+    queries, q8, scale, vsq, valid, r, l2 = _case(name)
+    q = _t(np.asarray(queries, np.float32))
+    a8, sc, vs, va = _t(q8), _t(scale), _t(vsq), _t(valid)
+    n_pad = a8.shape[0]
+    nblk = n_pad // 512
+    qsq = sqnorms(q)
+    bmax = bms.int8_blockmax_stage1(q.to(torch.bfloat16), a8, sc, vs, va,
+                                    qsq, l2)
+    nb_sel = min(2 * max(32, min(r, n_pad) // 4) + 8, nblk)
+    rr = min(r, nb_sel * 512)
+    _, top = stable_topk(bmax, nb_sel)
+    rows = (top[:, :, None] * 512 + torch.arange(512)).reshape(len(q), -1)
+    dots = torch.gather(q.to(torch.bfloat16).float() @ a8.float().T, 1,
+                        rows) * sc[rows]
+    scores = -(qsq[:, None] - 2.0 * dots + vs[rows]) if l2 else dots
+    scores = torch.where(va[rows], scores, torch.full_like(scores, NEG_INF))
+    ks, ki = bms.stage2_topk(scores, top, rr)
+    ps, pi = bms.blockmax_stage2_reference(q, a8, sc, vs, va, bmax, nb_sel,
+                                           rr, l2)
+    np.testing.assert_array_equal(ki.numpy(), pi.numpy())
+    fin = np.isfinite(ps.numpy())
+    np.testing.assert_array_equal(np.isfinite(ks.numpy()), fin)
+    np.testing.assert_allclose(ks.numpy()[fin], ps.numpy()[fin],
+                               rtol=1e-5, atol=1e-4)
+    assert (ki.numpy()[~fin] == -1).all()
+
+
+def test_stage2_kernel_wrapper_needs_cuda():
+    """On the CPU, stage 2 runs the plain version; the kernel's own
+    wrapper refuses a CPU tensor rather than fall back."""
+    queries, q8, scale, vsq, valid, _r, _l2 = _case("l2")
+    top = _distinct_blocks(np.random.default_rng(0), len(queries), 8, 8)
+    with pytest.raises(ValueError):
+        bms.blockmax_stage2_rescore(
+            _t(queries).to(torch.bfloat16), _t(q8), _t(scale), _t(vsq),
+            _t(valid), _t(np.sum(queries * queries, axis=1)), top, True)

@@ -5,10 +5,12 @@ engine's and scheduler's hooks.
 
 - Byte models equal the reference's on a grid, except two the port's
   layout changes, each with its difference stated byte for byte:
-  `scan_peak_bytes("pallas_blockmax")` (the port's stage 2 widens the
-  gathered int8 rows to f32 and keeps int64 ids: 4d + 4 more bytes a
-  gathered row) and `ivf_bucket_footprint_bytes` (the port keeps
-  `_bucket_lens`, nlist int32, beside the buckets).
+  `scan_peak_bytes("pallas_blockmax")` (the port's stage-2 kernel
+  writes the [B, S] f32 scores of every query at once, beside its slot
+  and tile maps and the selection, and sorts them 2^25 at a time, where
+  the reference holds one 32-query chunk of gathered rows) and
+  `ivf_bucket_footprint_bytes` (the port keeps `_bucket_lens`, nlist
+  int32, beside the buckets).
 - The peak table is the card's: no TPU row.
 - obs/ copies fed the same sequences as the reference's give equal
   snapshots (apart from the accountant's random scope id and event
@@ -68,16 +70,42 @@ def test_scan_byte_models_match_reference(n, d, r, b):
         ref_perf.blockmax_selected_blocks(r, n)
     assert perf_model.scan_peak_bytes(b, n, d, r, "xla_full") == \
         ref_perf.scan_peak_bytes(b, n, d, r, "xla_full")
-    # the port's stage 2: f32-widened gathered rows, int64 ids
-    s = perf_model.blockmax_selected_blocks(r, n) * 512
+    # the port's stage 2: the kernel's [B, S] f32 scores, the selection
+    # (int64), the slot map (int32) and tile map (a byte per 8 queries at
+    # most), the [B, rr] top-r and one sort of 2^25 scores (44 bytes an
+    # element) in place of the reference's chunk of gathered rows (d + 4
+    # + 4 a row)
+    nblk = max(n // 512, 1)
+    nb_sel = perf_model.blockmax_selected_blocks(r, n)
+    s = nb_sel * 512
+    rr = min(r, n, s)
+    rows = min(b, max(1, (1 << 25) // s))
     chunk = min(32, b)
     assert perf_model.scan_peak_bytes(b, n, d, r, "pallas_blockmax") == \
         ref_perf.scan_peak_bytes(b, n, d, r, "pallas_blockmax") \
-        + chunk * s * (4 * d + 4)
+        - chunk * s * (d + 8) + b * nb_sel * 8 + nblk * b * 4 \
+        + -(-b // 8) * nblk + b * s * 4 + b * rr * 12 + rows * s * 44
     assert perf_model.scan_traffic_bytes(b, n, d, "xla_full") == \
         ref_perf.scan_traffic_bytes(b, n, d, "xla_full")
     with pytest.raises(ValueError):
         perf_model.scan_peak_bytes(b, n, d, r, "nope")
+
+
+def test_port_blockmax_peak_is_the_stage2_scores():
+    """At the main path's shape (1M x 128, b=1024, rerank 512) the port's
+    block-max peak is stage 2's: the kernel's [B, S] f32 scores (S = 264
+    blocks of 512 rows), one sort of 248 queries' scores and the maps it
+    reads: about half the 4 GB [B, N] matrix, and nothing in it grows
+    with d, since no row is copied out of the mirror."""
+    b, n_pad, r = 1024, 1_000_448, 512
+    nblk, s = n_pad // 512, 264 * 512
+    assert perf_model.BLOCKMAX_SORT_ELEMS // s == 248
+    peak = perf_model.scan_peak_bytes(b, n_pad, 128, r, "pallas_blockmax")
+    maps = b * nblk * 4 + b * 264 * 8 + nblk * b * 4 + b // 8 * nblk
+    assert peak == b * s * 4 + 248 * s * 44 + b * r * 12 + maps
+    assert peak < perf_model.scan_peak_bytes(b, n_pad, 128, r, "xla_full")
+    assert peak == perf_model.scan_peak_bytes(b, n_pad, 960, r,
+                                              "pallas_blockmax")
 
 
 @pytest.mark.parametrize("n", [0, 1, 512, 1024, 1_048_576])

@@ -3,18 +3,21 @@ vearch_tpu/ops/pallas_kernels.py::int8_blockmax_scan_pallas.
 
 Stage 1 (`int8_blockmax_stage1`) scores every (query, mirror row) pair
 and keeps only each 512-row block's maximum, rounded through bf16:
-[B, N_pad/512] f32. On a CUDA tensor it launches the hand-written Hopper
-kernel in csrc/blockmax_scan.cu; on a CPU tensor it runs the plain
-PyTorch version `int8_blockmax_stage1_reference`. There is no fallback
-from one to the other: a CUDA tensor launches the kernel or raises.
+[B, N_pad/512] f32. Stage 2 (`blockmax_stage2`) picks the top blocks
+per query, re-scores their rows at f32 (bf16 x int8 products are exact
+in f32, TF32 is off) and takes the top-r. The reference ran stage 2 as
+XLA ops; here its re-score is a kernel too (`blockmax_stage2_rescore`),
+which reads the selected blocks straight from the int8 mirror and writes
+only the [B, nb_sel * 512] f32 scores, in the layout the plain version
+builds, so the stable top-r that follows breaks ties as it did.
 
-Stage 2 (`blockmax_stage2`) stays PyTorch, as it stayed XLA in the
-reference: pick the top blocks per query, gather their rows, re-score
-them at f32 (bf16 x int8 products are exact in f32, TF32 is off) and
-take the top-r, chunked over 32 queries so the gather stays ~150 MB at
-B=1024.
+On a CUDA tensor each stage launches its hand-written Hopper kernel in
+csrc/blockmax_scan.cu; on a CPU tensor it runs its plain PyTorch
+version (`int8_blockmax_stage1_reference`, `blockmax_stage2_reference`).
+There is no fallback from one to the other: a CUDA tensor launches the
+kernel or raises.
 
-The kernel is built with nvcc at first use into vearch_tpu_torch/_build/
+The kernels are built with nvcc at first use into vearch_tpu_torch/_build/
 through ops/_cuda_build.py (`LIBRARY.load()`).
 """
 
@@ -29,7 +32,13 @@ from vearch_tpu_torch.ops._cuda_build import CudaLibrary, count_launch
 from vearch_tpu_torch.ops.distance import NEG_INF, sqnorms, stable_topk
 
 BLOCK = 512  # rows per block maximum (ops/ivf.py BLOCK)
-STAGE2_CHUNK = 32  # queries per stage-2 gather
+STAGE2_CHUNK = 32  # queries per gather of the plain stage 2
+# scores per sort of the kernel path's top-r: a sort of [rows, S] takes
+# ~44 bytes an element at its peak on an H100 (torch's stable segmented
+# sort), so 2^25 keeps it near 1.5 GB; at the main path's S (135,168)
+# that is 248 queries a sort, 11.9 ms a 1,024-query batch against 13.8
+# ms in sorts of 32
+STAGE2_SORT_ELEMS = 1 << 25
 MASKED = -3.4e38  # stage-1 score of an invalid row (the reference's value)
 QUERY_TILES = (128, 64, 8)  # the kernel's wgmma N widths, widest first
 MAX_QUERY_SMEM = 200 * 1024  # bytes of the query tile in shared memory
@@ -37,6 +46,8 @@ MAX_QUERY_SMEM = 200 * 1024  # bytes of the query tile in shared memory
 LIBRARY = CudaLibrary("blockmax_scan.cu", {
     "vt_int8_blockmax_stage1":
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "vt_blockmax_stage2":
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 })
 
 
@@ -79,7 +90,7 @@ def int8_blockmax_stage1_reference(
     return scores.reshape(b, nblk, BLOCK).to(torch.bfloat16).amax(-1).float()
 
 
-def _check_stage1_inputs(qb, approx8, scale, vsq, valid, qsq) -> None:
+def _check_scan_inputs(qb, approx8, scale, vsq, valid, qsq) -> None:
     dev = qb.device
     named = {"qb": qb, "approx8": approx8, "scale": scale, "vsq": vsq,
              "valid": valid, "qsq": qsq}
@@ -120,7 +131,7 @@ def int8_blockmax_stage1(
     """Stage-1 block maxima [B, N_pad/512] f32 (arguments as for
     `int8_blockmax_stage1_reference`). CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
-    _check_stage1_inputs(qb, approx8, scale, vsq, valid, qsq)
+    _check_scan_inputs(qb, approx8, scale, vsq, valid, qsq)
     if qb.device.type == "cpu":
         return int8_blockmax_stage1_reference(qb, approx8, scale, vsq,
                                               valid, qsq, l2)
@@ -150,7 +161,7 @@ def int8_blockmax_stage1(
 int8_blockmax_stage1.launches = 0
 
 
-def blockmax_stage2(
+def blockmax_stage2_reference(
     queries: torch.Tensor,  # [B, d] f32
     approx8: torch.Tensor,
     scale: torch.Tensor,
@@ -161,9 +172,10 @@ def blockmax_stage2(
     rr: int,
     l2: bool,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top `nb_sel` blocks per query (lower block first on ties), their
-    rows re-scored at f32, top-`rr`. Returns ([B, rr] f32 scores, [B, rr]
-    int32 ids; -1 where the score is not finite)."""
+    """Plain PyTorch stage 2 (arguments and results as for
+    `blockmax_stage2`): gathers the selected blocks' rows STAGE2_CHUNK
+    queries at a time, widens them to f32 and re-scores them with one
+    f32 product a query."""
     b, d = queries.shape
     nblk = approx8.shape[0] // BLOCK
     _, top_blocks = stable_topk(bmax, nb_sel)  # [B, nb_sel]
@@ -198,6 +210,121 @@ def blockmax_stage2(
     ids = torch.cat(out_i).to(torch.int32)
     return top_s, torch.where(torch.isfinite(top_s), ids,
                               torch.full_like(ids, -1))
+
+
+def stage2_maps(top_blocks: torch.Tensor, nblk: int,
+                n_tile: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The stage-2 kernel's view of the selection `top_blocks` [B, nb_sel]
+    (distinct blocks a query): `slots` [nblk, B] int32, the place of
+    block j in query q's list at (j, q), -1 where q did not select j (one
+    scatter; block-major, so the CTAs of a block read their queries'
+    entries side by side), and `active` [ceil(B / n_tile), nblk] uint8,
+    1 where some query of the n_tile-wide query tile selected the block."""
+    b, nb_sel = top_blocks.shape
+    dev = top_blocks.device
+    queries = torch.arange(b, device=dev)[:, None].expand(b, nb_sel)
+    slots = torch.full((nblk, b), -1, dtype=torch.int32, device=dev)
+    slots[top_blocks, queries] = torch.arange(
+        nb_sel, dtype=torch.int32, device=dev).expand(b, nb_sel)
+    active = torch.zeros((-(-b // n_tile), nblk), dtype=torch.uint8,
+                         device=dev)
+    active[queries // n_tile, top_blocks] = 1
+    return slots, active
+
+
+@perf_model.register_op("kernel.blockmax_stage2_rescore")
+def blockmax_stage2_rescore(
+    qb: torch.Tensor,          # [B, d] bf16
+    approx8: torch.Tensor,     # [N_pad, d] int8
+    scale: torch.Tensor,       # [N_pad] f32
+    vsq: torch.Tensor,         # [N_pad] f32
+    valid: torch.Tensor,       # [N_pad] bool
+    qsq: torch.Tensor,         # [B] f32
+    top_blocks: torch.Tensor,  # [B, nb_sel] int64, distinct per query
+    l2: bool,
+) -> torch.Tensor:
+    """The stage-2 kernel: [B, nb_sel * 512] f32, entry (q, i*512 + o) the
+    f32 score of row o of block top_blocks[q, i] (-inf where masked), the
+    plain version's layout. CUDA tensors only; one launch a call."""
+    _check_scan_inputs(qb, approx8, scale, vsq, valid, qsq)
+    if qb.device.type != "cuda":
+        raise ValueError(f"the stage-2 kernel needs a CUDA tensor, got "
+                         f"{qb.device}")
+    b, d = qb.shape
+    nblk = approx8.shape[0] // BLOCK
+    if top_blocks.device != qb.device or top_blocks.ndim != 2 \
+            or top_blocks.shape[0] != b:
+        raise ValueError(f"top_blocks must be [{b}, nb_sel] on {qb.device}")
+    nb_sel = top_blocks.shape[1]
+    n_tile = query_tile(b, d)
+    slots, active = stage2_maps(top_blocks, nblk, n_tile)
+    lib = LIBRARY.load()
+    out = torch.empty((b, nb_sel * BLOCK), dtype=torch.float32,
+                      device=qb.device)
+    with torch.cuda.device(qb.device):
+        stream = torch.cuda.current_stream(qb.device).cuda_stream
+        err = lib.vt_blockmax_stage2(
+            qb.data_ptr(), approx8.data_ptr(), scale.data_ptr(),
+            vsq.data_ptr(), valid.data_ptr(), qsq.data_ptr(),
+            slots.data_ptr(), active.data_ptr(), out.data_ptr(),
+            b, d, nblk, nb_sel, int(bool(l2)), n_tile, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"blockmax stage-2 kernel launch failed: "
+                           f"cudaError {err}")
+    count_launch(blockmax_stage2_rescore)
+    return out
+
+
+#: kernel launches since the counter was last set to 0
+blockmax_stage2_rescore.launches = 0
+
+
+def stage2_topk(scores: torch.Tensor, top_blocks: torch.Tensor,
+                rr: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-`rr` of the re-scored rows [B, nb_sel * 512] (lower position
+    first on ties), sorted STAGE2_SORT_ELEMS scores at a time, with each
+    position's row id: block top_blocks[q, pos // 512], row pos % 512 of
+    it; -1 where the score is not finite."""
+    b, s = scores.shape
+    top_s = torch.empty((b, rr), dtype=scores.dtype, device=scores.device)
+    pos = torch.empty((b, rr), dtype=torch.int64, device=scores.device)
+    rows = max(1, STAGE2_SORT_ELEMS // s)
+    for lo in range(0, b, rows):
+        # copied out, so each sort's [rows, S] buffers free before the next
+        top_s[lo:lo + rows], pos[lo:lo + rows] = stable_topk(
+            scores[lo:lo + rows], rr)
+    ids = (torch.gather(top_blocks, 1, pos // BLOCK) * BLOCK
+           + pos % BLOCK).to(torch.int32)
+    return top_s, torch.where(torch.isfinite(top_s), ids,
+                              torch.full_like(ids, -1))
+
+
+def blockmax_stage2(
+    queries: torch.Tensor,  # [B, d] f32
+    approx8: torch.Tensor,
+    scale: torch.Tensor,
+    vsq: torch.Tensor,
+    valid: torch.Tensor,
+    bmax: torch.Tensor,     # [B, nblk] stage-1 block maxima
+    nb_sel: int,
+    rr: int,
+    l2: bool,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top `nb_sel` blocks per query (lower block first on ties), their
+    rows re-scored at f32, top-`rr`. Returns ([B, rr] f32 scores, [B, rr]
+    int32 ids; -1 where the score is not finite). CPU tensors take the
+    plain version; CUDA tensors launch the re-score kernel once."""
+    if queries.device.type == "cpu":
+        return blockmax_stage2_reference(queries, approx8, scale, vsq,
+                                         valid, bmax, nb_sel, rr, l2)
+    if queries.device.type != "cuda":
+        raise ValueError(f"unsupported device {queries.device}")
+    _, top_blocks = stable_topk(bmax, nb_sel)  # [B, nb_sel]
+    scores = blockmax_stage2_rescore(
+        queries.to(torch.bfloat16).contiguous(), approx8, scale, vsq, valid,
+        sqnorms(queries).contiguous(), top_blocks, l2)
+    return stage2_topk(scores, top_blocks, rr)
 
 
 def int8_blockmax_scan(

@@ -38,9 +38,15 @@ import time
 import weakref
 from typing import Any, Callable
 
-# must match ops/blockmax_scan.py BLOCK and STAGE2_CHUNK
+# must match ops/blockmax_scan.py BLOCK, STAGE2_CHUNK and STAGE2_SORT_ELEMS
 BLOCK = 512
 BLOCKMAX_STAGE2_CHUNK = 32
+BLOCKMAX_SORT_ELEMS = 1 << 25
+# device bytes a sorted element takes at the peak of torch's stable
+# segmented sort (values and int64 positions out, its keys, positions and
+# segment ids, double-buffered), measured on an H100 at stage 2's sort of
+# [248, 135,168] f32 (32-57 across the sort shapes tried)
+SORT_PEAK_BYTES = 44
 
 F32 = 4
 I32 = 4
@@ -430,20 +436,28 @@ def scan_peak_bytes(b: int, n_pad: int, d: int, r: int, path: str) -> int:
     - "xla_full": the [B, N] f32 score matrix (the int4 scan, the binary
       stage 0 and the "exact" selection build it; the reference's
       default XLA scan too).
-    - "pallas_blockmax": the block-max kernel writes [B, N/512] f32
-      maxima; stage 2 holds one 32-query chunk of gathered blocks. The
-      port's stage 2 (ops/blockmax_scan.blockmax_stage2) widens the
-      gathered int8 rows to f32 and keeps int64 row ids, so a gathered
-      row costs d + 4d + 4 + 8 bytes where the reference's costs
-      d + 4 + 4.
+    - "pallas_blockmax": the port's two kernels. Stage 1 writes [B, N/512]
+      f32 maxima; stage 2 (ops/blockmax_scan.blockmax_stage2) holds the
+      selection [B, nb_sel] int64, its slot map [N/512, B] int32 and
+      tile map (at most [ceil(B/8), N/512] bytes: the narrowest query
+      tile is 8 wide), the kernel's [B, S] f32 scores (S = nb_sel *
+      512), the [B, rr] top-r (f32 scores, int64 positions) and the sort
+      of one chunk of BLOCKMAX_SORT_ELEMS scores (SORT_PEAK_BYTES an
+      element). No gathered or widened copy of the rows exists; the
+      reference's stage 2 holds one 32-query chunk of gathered rows (d +
+      4 + 4 bytes a row) instead.
     """
     if path == "xla_full":
         return b * n_pad * F32
     if path == "pallas_blockmax":
         nblk = max(n_pad // BLOCK, 1)
-        s = blockmax_selected_blocks(r, n_pad) * BLOCK
-        chunk = min(BLOCKMAX_STAGE2_CHUNK, b)
-        return b * nblk * F32 + chunk * s * (d + F32 * d + F32 + I64)
+        nb_sel = blockmax_selected_blocks(r, n_pad)
+        s = nb_sel * BLOCK
+        rr = min(r, n_pad, s)
+        rows = min(b, max(1, BLOCKMAX_SORT_ELEMS // s))
+        return (b * nblk * F32 + b * nb_sel * I64 + nblk * b * I32
+                + -(-b // 8) * nblk + b * s * F32 + b * rr * (F32 + I64)
+                + rows * s * SORT_PEAK_BYTES)
     raise ValueError(f"unknown scan path {path!r}")
 
 
