@@ -24,6 +24,15 @@ Phases:
      alone, the whole stage, the top-r, the plain stage, the plain
      gather + widen + bmm as the library yardstick, the bound, the share
      of (query tile, block) pairs computed, the peak bytes);
+   - both block-max stages at d=960 (`wide_cases`, B=1024 and 64: the
+     64-query tile, a 15-step K loop), as above for queries apart from
+     the rows; next to a row stage 1 is held to exact float64 maxima
+     (`compare_stage1_exact`); then at the gist1m-ivfpq.batch-full
+     cell's own shape (1,000,448 x 960, B=1024, rerank 512;
+     `phase_wide_kernels`): one launch of each kernel a full scan,
+     stage 1 within one bf16 ulp of the plain version, stage 2's ids at
+     B=64, and both stages' times beside the plain ones and the bound
+     (the `d960_case` of each block-max row of the kernel table);
    - probe dots: every dot within 2*d f32 ulps of the sum of the
      absolute products (the bound on two summation orders of d exact
      products), zeros for padded probe slots and ids >= nlist, and
@@ -472,6 +481,84 @@ def stage2_cases():
     return out
 
 
+def wide_cases():
+    """GIST1M's row width (d=960) at the benchmark's batch (B=1024) and
+    at one 64-wide tile (B=64): a bf16 tile of 128 queries would pass
+    the kernels' shared-memory budget, so both stages run 64-query tiles
+    and a 15-step K loop; 100 blocks, so stage 2 prunes (72 selected at
+    r=64). Queries drawn apart from the rows (as `b70`), whose block
+    maxima lie far from 0, and queries next to a row (`_near`), whose
+    best block maximum is a small difference of large sums
+    (name, arrays, r, l2)."""
+    out = []
+    base, q8, sc, vs = mirror_case(100 * 512, 960, 41)
+    rng = np.random.default_rng(42)
+    for b in (1024, 64):
+        q = rng.standard_normal((b, 960)).astype(np.float32)
+        out.append((f"d960_b{b}", q, q8, sc, vs, np.ones(100 * 512, bool),
+                    64, True))
+        q = base[rng.choice(100 * 512, b, replace=False)] + 0.01
+        out.append((f"d960_b{b}_near", q, q8, sc, vs,
+                    np.ones(100 * 512, bool), 64, True))
+    return out
+
+
+def stage1_exact(qb, qsq, a64, sc, vs, va, l2):
+    """Exact (float64) block maxima of stage 1 over the mirror (a64: its
+    rows as float64) for bf16 queries qb [b, d], and the bound on a
+    kernel's maxima from them: each row's f32 score lies within
+    stage2_exact's bound of its exact score, so the block's f32 maximum
+    lies within the block's largest bound of the exact maximum, and the
+    bf16 rounding adds at most one bf16 ulp. Every row valid."""
+    import torch
+
+    from vearch_tpu_torch.ops import blockmax_scan as bms
+
+    check(bool(va.all()), "stage1_exact takes a mirror with no row masked")
+    b = qb.shape[0]
+    n_pad = a64.shape[0]
+    rows = torch.arange(n_pad, device=qb.device).expand(b, n_pad)
+    exact, tol = stage2_exact(qb, qsq, a64, sc, vs, rows, l2)
+    ex = exact.view(b, -1, bms.BLOCK).amax(-1)
+    return ex, tol.view(b, -1, bms.BLOCK).amax(-1) + bf16_ulp(ex)
+
+
+def compare_stage1_exact(name, q, a8, sc, vs, va, l2):
+    """Stage 1's kernel maxima against the exact maxima (stage1_exact),
+    within its bound, 64 queries at a time; the plain version's share of
+    the same bound beside it. Returns a result dict; raises where the
+    kernel passes its bound."""
+    import torch
+
+    from vearch_tpu_torch.ops import blockmax_scan as bms
+    from vearch_tpu_torch.ops.distance import sqnorms
+
+    qb = q.to(torch.bfloat16).contiguous()
+    qsq = sqnorms(q).contiguous()
+    args = (qb, a8, sc, vs, va, qsq, l2)
+    bk = bms.int8_blockmax_stage1(*args)
+    bp = bms.int8_blockmax_stage1_reference(*args)
+    a64 = a8.double()
+    worst, plain_worst, plain_ulp = 0.0, 0.0, 0.0
+    for lo in range(0, q.shape[0], 64):
+        hi = min(lo + 64, q.shape[0])
+        ex, tol = stage1_exact(qb[lo:hi], qsq[lo:hi], a64, sc, vs, va, l2)
+        worst = max(worst, float(((bk[lo:hi].double() - ex).abs()
+                                  / tol).max()))
+        plain_worst = max(plain_worst, float(
+            ((bp[lo:hi].double() - ex).abs() / tol).max()))
+        plain_ulp = max(plain_ulp, float(
+            ((bk[lo:hi] - bp[lo:hi]).abs() / bf16_ulp(bp[lo:hi])).max()))
+    res = {"case": name, "B": q.shape[0], "N_pad": a8.shape[0],
+           "d": a8.shape[1], "worst_share_of_bound": worst,
+           "plain_worst_share_of_bound": plain_worst,
+           "kernel_minus_plain_in_bf16_ulps": plain_ulp}
+    print("stage1_exact_case " + json.dumps(res), flush=True)
+    check(worst <= 1.0, f"{name}: a block maximum beyond its bound "
+          f"({worst:.3f} of it)")
+    return res
+
+
 def bf16_ulp(x):
     import torch
 
@@ -753,18 +840,122 @@ def time_stage2(q, a8, sc, vs, va, bmax, top, nb_sel, rr, l2) -> dict:
 
 
 def phase_kernels(dev):
+    """Both block-max stages against their plain versions over
+    small_cases(), stage2_cases() and wide_cases(): the wide cases drawn
+    apart from the rows through compare_case (stage 1 within one bf16
+    ulp, then compare_stage2), those next to a row (`_near`) through
+    compare_stage1_exact and compare_stage2."""
     import torch
 
+    from vearch_tpu_torch.ops import blockmax_scan as bms
+    from vearch_tpu_torch.ops.distance import sqnorms
+
     out = []
-    for name, q, q8, sc, vs, va, r, l2 in small_cases():
+    for name, q, q8, sc, vs, va, r, l2 in (small_cases() + stage2_cases()
+                                           + wide_cases()):
         t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
              for x in (q.astype(np.float32), q8, sc, vs, va)]
-        out.append(compare_case(name, *t, r, l2))
-    for name, q, q8, sc, vs, va, r, l2 in stage2_cases():
-        t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-             for x in (q.astype(np.float32), q8, sc, vs, va)]
-        out.append(compare_case(name, *t, r, l2))
+        if not name.endswith("_near"):
+            out.append(compare_case(name, *t, r, l2))
+            continue
+        qf, a8, sc_t, vs_t, va_t = t
+        out.append(compare_stage1_exact(name, qf, a8, sc_t, vs_t, va_t, l2))
+        bmax = bms.int8_blockmax_stage1(
+            qf.to(torch.bfloat16).contiguous(), a8, sc_t, vs_t, va_t,
+            sqnorms(qf).contiguous(), l2)
+        out.append(compare_stage2(name, qf, a8, sc_t, vs_t, va_t, bmax, r,
+                                  l2))
     return out
+
+
+def phase_wide_kernels(dev, n_pad=1_000_448, d=960, b=1024, r=512,
+                       seed=43) -> dict:
+    """Both block-max kernels at the gist1m-ivfpq.batch-full cell's own
+    shape (a random int8 mirror of n_pad x 960 rows, made on the card,
+    1,024 queries apart from the rows, rerank 512): the 64-query tile
+    and a 15-step K loop. Checks first: one full scan (int8_blockmax_scan)
+    with both launch counters set to 0 just before it must launch each
+    kernel once; stage 1's maxima within one bf16 ulp of the plain
+    version's; the first 64 queries' top-r ids equal to the plain stage
+    2's except at score ties (compare_stage2's full bound check is left
+    to wide_cases(), whose rows fit its float64 copies). Then stage 1's
+    kernel / plain / library times with its bound from these inputs (and
+    the time of the mirror bytes its query tiles stream, at the HBM
+    peak), and stage 2's as time_stage2 gives them."""
+    import torch
+
+    from vearch_tpu_torch.ops import blockmax_scan as bms
+    from vearch_tpu_torch.ops.distance import sqnorms, stable_topk
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    base = torch.randn((n_pad, d), generator=gen, device=dev)
+    sc = torch.clamp(base.abs().amax(1) / 127.0, min=1e-12)
+    base = torch.clamp(torch.round(base / sc[:, None]), -127, 127)
+    vs = ((base * sc[:, None]) ** 2).sum(1)
+    a8 = base.to(torch.int8)
+    del base
+    va = torch.ones(n_pad, dtype=torch.bool, device=dev)
+    q = torch.randn((b, d), generator=gen, device=dev)
+    qb, qsq = q.to(torch.bfloat16).contiguous(), sqnorms(q).contiguous()
+    tile = bms.query_tile(b, d)
+    nblk = n_pad // bms.BLOCK
+    bms.int8_blockmax_stage1.launches = 0
+    bms.blockmax_stage2_rescore.launches = 0
+    bms.int8_blockmax_scan(q, a8, sc, vs, va, r)
+    torch.cuda.synchronize()
+    launches = {"int8_blockmax_scan": bms.int8_blockmax_stage1.launches,
+                "blockmax_stage2": bms.blockmax_stage2_rescore.launches}
+    check(launches == {"int8_blockmax_scan": 1, "blockmax_stage2": 1},
+          f"wide kernels: one full scan launched {launches}")
+    args = (qb, a8, sc, vs, va, qsq, True)
+    bk = bms.int8_blockmax_stage1(*args)
+    bp = bms.int8_blockmax_stage1_reference(*args)
+    ulps = float(((bk - bp).abs() / bf16_ulp(bp)).max())
+    del bp
+    check(ulps <= 1.0, f"wide kernels: a block maximum {ulps} bf16 ulps "
+          f"from the plain version's")
+    nb_sel, rr = stage2_select(n_pad, r)
+    ks, ki = bms.blockmax_stage2(q[:64], a8, sc, vs, va, bk[:64], nb_sel,
+                                 rr, True)
+    ps, pi = bms.blockmax_stage2_reference(q[:64], a8, sc, vs, va, bk[:64],
+                                           nb_sel, rr, True)
+    diff = ki != pi
+    tie = diff & torch.isclose(ks, ps, rtol=SCORE_TOL[0], atol=SCORE_TOL[1])
+    unexplained = int((diff & ~tie).sum())
+    check(unexplained == 0, f"wide kernels: {unexplained} stage-2 id "
+          f"mismatches not explained by a score tie")
+    del ks, ki, ps, pi
+    res = {"B": b, "N_pad": n_pad, "d": d, "r": r, "query_tile": tile,
+           "launches": launches, "bmax_max_ulps_from_plain": ulps,
+           "stage2_id_mismatches_b64": int(diff.sum()),
+           "stage2_explained_by_score_tie_b64": int(tie.sum())}
+    res["ms"] = median_ms(lambda: bms.int8_blockmax_stage1(*args))
+    res["plain_ms"] = median_ms(
+        lambda: bms.int8_blockmax_stage1_reference(*args), reps=3, warm=1)
+    a8b = a8.to(torch.bfloat16)
+    res["library_ms"] = median_ms(
+        lambda: torch.matmul(qb, a8b.T).view(b, nblk, bms.BLOCK).amax(-1),
+        reps=3, warm=1)
+    del a8b
+    flops = 2.0 * b * n_pad * d
+    nbytes = (b * d * 2 + n_pad * d + n_pad * 4 * 2 + n_pad + b * 4
+              + b * nblk * 4)
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    res["bound_ms"] = max(t_ops, t_bytes)
+    res["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    res["mirror_bytes"] = bms.stage1_mirror_bytes(b, n_pad, d)
+    res["mirror_bytes_at_peak_ms"] = res["mirror_bytes"] / PEAK_BYTES * 1e3
+    _, top = stable_topk(bk, nb_sel)
+    _, active = bms.stage2_maps(top, nblk, tile)
+    stage2 = {"tile_block_pairs_computed": float(active.float().mean()),
+              "mirror_bytes": int(bms.stage2_mirror_bytes(active, d))}
+    del active
+    stage2.update(time_stage2(q, a8, sc, vs, va, bk, top, nb_sel, rr, True))
+    res["stage2"] = stage2
+    print("wide_kernels " + json.dumps(res), flush=True)
+    return res
 
 
 def bucket_case(nlist, cap, d, b, nprobe, seed):
@@ -5011,6 +5202,8 @@ def main() -> int:
 
     t0 = time.monotonic()
     phase_kernels(dev)
+    wide = phase_wide_kernels(dev)
+    release_device_memory()
     phase_probe_kernels(dev)
     phase_blockmax_exact(dev)
     print(f"phase kernels: {time.monotonic() - t0:.1f}s", flush=True)
@@ -5090,7 +5283,12 @@ def main() -> int:
              main_res, paths, "int8_blockmax_scan"),
          "max_abs_err": res["bmax_max_abs_err"], "ms": res["kernel_ms"],
          "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-         "bound_by": res["bound_by"], "library_ms": res["library_ms"]},
+         "bound_by": res["bound_by"], "library_ms": res["library_ms"],
+         # the gist1m-ivfpq.batch-full cell's shape: the 64-query tile
+         "d960_case": {k: wide[k] for k in (
+             "B", "N_pad", "d", "query_tile", "launches", "ms", "plain_ms",
+             "library_ms", "bound_ms", "bound_by", "mirror_bytes",
+             "mirror_bytes_at_peak_ms")}},
         {"name": "blockmax_stage2", "route": "cuda",
          "design": "the stage-1 mainloop (wgmma bf16, int8 rows converted "
                    "in registers) over the blocks its query tile "
@@ -5105,7 +5303,15 @@ def main() -> int:
          **{k: res["stage2"][k] for k in (
              "worst_share_of_bound", "rescore_ms", "stage2_ms", "topk_ms",
              "plain_ms", "library_ms", "bound_ms", "bound_by",
-             "tile_block_pairs_computed", "peak_bytes")}},
+             "tile_block_pairs_computed", "peak_bytes")},
+         "d960_case": dict(
+             {k: wide[k] for k in ("B", "N_pad", "d", "query_tile",
+                                   "launches")},
+             **{k: wide["stage2"][k] for k in (
+                 "rescore_ms", "stage2_ms", "topk_ms", "plain_ms",
+                 "library_ms", "bound_ms", "bound_by",
+                 "tile_block_pairs_computed", "mirror_bytes",
+                 "peak_bytes")})},
         {"name": "ivf_probe_dots", "route": "cuda",
          "design": "pairs sorted by bucket on the device; a CTA per "
                    "(bucket, 64-row tile) reads its live rows once per 64 "

@@ -192,11 +192,14 @@ def test_stage1_wrapper_rejects_bad_input():
 
 @pytest.mark.parametrize("b,d,want", [
     (1, 128, 8), (8, 30, 8), (9, 128, 64), (64, 100, 64), (70, 64, 128),
-    (1024, 128, 128), (1024, 1600, 64), (300, 12800, 8)])
+    (1024, 128, 128), (1024, 1600, 64), (300, 12800, 8),
+    (1024, 768, 128), (1024, 832, 64), (1024, 960, 64)])
 def test_query_tile_width(b, d, want):
     """The kernel's query tile: the narrowest wgmma N that holds the
     batch, narrowed while the bf16 tile (d rounded up to 64) would pass
-    the kernel's shared-memory budget."""
+    the kernel's shared-memory budget (at B=1024 the 128-wide tile holds
+    to d=768, 196,608 bytes; from d=832 it would pass the budget, so
+    GIST1M's 960-d rows run 64-wide tiles)."""
     n = bms.query_tile(b, d)
     assert n == want
     assert n * (-(-d // 64) * 64) * 2 <= bms.MAX_QUERY_SMEM
@@ -205,6 +208,33 @@ def test_query_tile_width(b, d, want):
 def test_query_tile_refuses_a_d_past_the_budget():
     with pytest.raises(ValueError):
         bms.query_tile(1, 12864)
+
+
+@pytest.mark.parametrize("b,n_pad,d,want", [
+    # SIFT1M's full scan: 8 tiles of 128 over 1,000,448 rows of 128 + 8
+    (1024, 1_000_448, 128, 8 * 1_000_448 * 136),
+    # GIST1M's: 16 tiles of 64 over rows of 960 + 8 bytes
+    (1024, 1_000_448, 960, 16 * 1_000_448 * 968),
+    (1, 4096, 64, 4096 * 72), (70, 4096, 64, 4096 * 72),
+    (130, 512, 30, 2 * 512 * 38)])
+def test_stage1_mirror_bytes_follow_the_query_tile(b, n_pad, d, want):
+    """Stage 1 streams the whole mirror once per query tile: N_pad rows
+    of d int8 codes and an f32 scale and |v|^2 each."""
+    assert bms.stage1_mirror_bytes(b, n_pad, d) == want
+
+
+def test_stage2_mirror_bytes_count_the_tile_map():
+    """Stage 2 reads 512 rows of d + 8 bytes for each (query tile, block)
+    pair its tile map lets through, summed on the map's device."""
+    top = torch.tensor([[0, 3], [3, 5], [7, 1]])  # 3 queries, 8 blocks
+    _, active = bms.stage2_maps(top, 8, 8)  # one tile: blocks 0,1,3,5,7
+    got = bms.stage2_mirror_bytes(active, 960)
+    assert got.dtype == torch.int64 and got.device == active.device
+    assert int(got) == 5 * 512 * 968
+    _, active = bms.stage2_maps(top, 8, 1)  # tiles of one query: 6 pairs
+    assert int(bms.stage2_mirror_bytes(active, 128)) == 6 * 512 * 136
+    _, active = bms.stage2_maps(top, 8, 2)  # tiles {0, 1}, {2}: 3 + 2
+    assert int(bms.stage2_mirror_bytes(active, 30)) == 5 * 512 * 38
 
 
 def _distinct_blocks(rng, b, nblk, nb_sel):

@@ -231,3 +231,70 @@ def test_span_cost_without_tracing_is_one_check():
         ivf_ops.end_capture()
     assert len(cap.spans) == n
     assert off < on
+
+
+def test_span_attributes_join_the_capture():
+    """`span_attrs` gives the innermost open span of a traced request an
+    entry a call, so a span that runs a stage twice keeps both; without
+    a capture, or outside any span, it keeps nothing and `make` is not
+    called."""
+    def never():
+        raise AssertionError("make called without a capture")
+
+    with ivf_ops.span("scan.blockmax", device=True):
+        ivf_ops.span_attrs(never)
+    cap = ivf_ops.begin_capture("cpu")
+    try:
+        ivf_ops.span_attrs(lambda: {"outside": 1})
+        with ivf_ops.span("engine.search.emb"):
+            with ivf_ops.span("scan.blockmax", device=True):
+                ivf_ops.span_attrs(lambda: {"query_tile": 64})
+            with ivf_ops.span("scan.refine", device=True):
+                ivf_ops.span_attrs(lambda: {"mirror_bytes": 5})
+                ivf_ops.span_attrs(lambda: {"mirror_bytes": 7})
+            ivf_ops.span_attrs(lambda: {"field": 1})
+    finally:
+        ivf_ops.end_capture()
+    assert cap.attrs == [["scan.blockmax", {"query_tile": 64}],
+                         ["scan.refine", {"mirror_bytes": 5}],
+                         ["scan.refine", {"mirror_bytes": 7}],
+                         ["engine.search.emb", {"field": 1}]]
+
+
+def test_traced_full_scan_gives_its_stages_the_query_tile(engines,
+                                                          monkeypatch):
+    """The block-max stages' launches give their spans `query_tile` and
+    `mirror_bytes` in the trace's `span_attrs`, a 0-d tensor read as a
+    number; on the CPU the plain versions run and give none, so stand-ins
+    that add the attributes are put in their place to see them reach
+    the trace. An untraced search calls no `make`."""
+    from vearch_tpu_torch.ops import blockmax_scan as bms
+
+    eng, vecs = engines["IVFPQ"]
+    trace: dict = {}
+    eng.search(_request(vecs, CASES["full"][1], trace))
+    assert "span_attrs" not in trace
+    made = []
+
+    def tagged(fn, value):
+        def run(*args, **kw):
+            out = fn(*args, **kw)
+            ivf_ops.span_attrs(lambda: made.append(value) or {
+                "query_tile": 7, "mirror_bytes": value})
+            return out
+        return run
+
+    for mod in (ivf_ops, bms):
+        monkeypatch.setattr(mod, "int8_blockmax_stage1", tagged(
+            bms.int8_blockmax_stage1, 11))
+        monkeypatch.setattr(mod, "blockmax_stage2", tagged(
+            bms.blockmax_stage2, torch.tensor(13)))
+    eng.search(_request(vecs, CASES["full"][1], None))
+    assert made == []
+    trace = {}
+    eng.search(_request(vecs, CASES["full"][1], trace))
+    assert trace["span_attrs"] == [
+        ["scan.blockmax", {"query_tile": 7, "mirror_bytes": 11}],
+        ["scan.refine", {"query_tile": 7, "mirror_bytes": 13}]]
+    assert all(type(a["mirror_bytes"]) is int
+               for _, a in trace["span_attrs"])

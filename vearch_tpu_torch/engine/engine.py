@@ -119,8 +119,9 @@ class SearchRequest:
     # the scheduler
     raw_results: bool = False
     # when not None, the engine records per-phase wall times into it
-    # ({phase}_ms keys, `_phase_spans` [name, start_us, dur_us] and, on a
-    # CUDA device, `stream_ms`: {device span name: ms on the stream})
+    # ({phase}_ms keys, `_phase_spans` [name, start_us, dur_us], on a
+    # CUDA device `stream_ms`: {device span name: ms on the stream}, and
+    # `span_attrs`: [span name, {key: value}] entries where spans got any)
     trace: dict[str, float] | None = None
     # cooperative cancellation, checked at phase boundaries: a killed
     # request aborts before its next device dispatch, never mid-kernel
@@ -1195,9 +1196,11 @@ class Engine:
         matched serving path; the `_phase_spans` rows ([name, start_us,
         dur_us]: the request's spans, engine.*, index.*, scan.*, mesh.*,
         tier.*, stage.*, in the order they opened, then a kernel.{tag}
-        row a dispatch); and on a CUDA device `stream_ms` ({device span
+        row a dispatch); on a CUDA device `stream_ms` ({device span
         name: ms on the stream}, summed over the search), read once the
-        answer is on the host and every span's events are complete. A
+        answer is on the host and every span's events are complete; and
+        `span_attrs` ([span name, {key: value}] an `ops.ivf.span_attrs`
+        call, a 0-d tensor value read as a number) where spans got any. A
         kernel.{tag} row is the host's window from the dispatch's note
         to the next note or the field's end, not device time; the name
         is the reference's."""
@@ -1227,6 +1230,11 @@ class Engine:
         if capture.stream:
             trace["stream_ms"] = {name: round(ms, 3) for name, ms
                                   in capture.stream_ms().items()}
+        if capture.attrs:
+            trace["span_attrs"] = [
+                [name, {k: v.item() if isinstance(v, torch.Tensor) else v
+                        for k, v in attrs.items()}]
+                for name, attrs in capture.attrs]
         names = {row[0].split(".", 1)[0] for row in capture.spans}
         if "mesh" in names or any(t.startswith("sharded") for t in tags):
             info = self.mesh_info()

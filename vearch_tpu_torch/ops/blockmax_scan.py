@@ -19,6 +19,13 @@ kernel or raises.
 
 The kernels are built with nvcc at first use into vearch_tpu_torch/_build/
 through ops/_cuda_build.py (`LIBRARY.load()`).
+
+On a traced request each launch gives the span it runs in (`scan.blockmax`,
+`scan.refine`) the attributes `query_tile` and `mirror_bytes`: the int8
+mirror bytes it streamed, each row's d codes, scale and |v|^2 (d + 8
+bytes) once per query tile that walked it (`stage1_mirror_bytes` from
+the shapes; `stage2_mirror_bytes` from the tile map, on the device). An
+untraced launch counts nothing beyond `.launches`.
 """
 
 from __future__ import annotations
@@ -65,6 +72,19 @@ def query_tile(b: int, d: int) -> int:
         if n >= b:
             return n
     return fits[0]
+
+
+def stage1_mirror_bytes(b: int, n_pad: int, d: int) -> int:
+    """Mirror bytes one stage-1 launch streams: every query tile walks
+    all N_pad rows, d int8 codes and the f32 scale and |v|^2 a row."""
+    return -(-b // query_tile(b, d)) * n_pad * (d + 8)
+
+
+def stage2_mirror_bytes(active: torch.Tensor, d: int) -> torch.Tensor:
+    """Mirror bytes one stage-2 launch streams, as a 0-d int64 tensor on
+    `active`'s device: each (query tile, block) pair the tile map lets
+    through reads the block's 512 rows of d + 8 bytes."""
+    return active.sum(dtype=torch.int64) * (BLOCK * (d + 8))
 
 
 def int8_blockmax_stage1_reference(
@@ -153,6 +173,9 @@ def int8_blockmax_stage1(
         raise RuntimeError(f"blockmax_scan kernel launch failed: "
                            f"cudaError {err}")
     count_launch(int8_blockmax_stage1)
+    ivf_ops.span_attrs(lambda: {
+        "query_tile": n_tile,
+        "mirror_bytes": stage1_mirror_bytes(b, approx8.shape[0], d)})
     return out
 
 
@@ -273,6 +296,9 @@ def blockmax_stage2_rescore(
         raise RuntimeError(f"blockmax stage-2 kernel launch failed: "
                            f"cudaError {err}")
     count_launch(blockmax_stage2_rescore)
+    ivf_ops.span_attrs(lambda: {
+        "query_tile": n_tile,
+        "mirror_bytes": stage2_mirror_bytes(active, d)})
     return out
 
 

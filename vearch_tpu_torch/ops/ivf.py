@@ -62,7 +62,9 @@ thread) it adds a (name, start, end) host window to the capture, which
 the engine turns into `_phase_spans` rows. A `device=True` span of a
 traced request on a CUDA device also records a timing event pair on the
 current stream, read into `trace["stream_ms"]`. With neither, a span
-costs one check. docs/OBSERVABILITY_TORCH.md lists the names.
+costs one check. On a traced request, `span_attrs` gives the innermost
+open span attributes (`trace["span_attrs"]`, one entry a call).
+docs/OBSERVABILITY_TORCH.md lists the names.
 """
 
 from __future__ import annotations
@@ -130,7 +132,7 @@ _capture_tls = _CaptureLocal()
 
 
 class DispatchCapture:
-    __slots__ = ("events", "spans", "stream", "stream_device")
+    __slots__ = ("attrs", "events", "spans", "stream", "stream_device")
 
     def __init__(self, device=None) -> None:
         # [tag, start_monotonic_s, end_monotonic_s | None]
@@ -141,6 +143,8 @@ class DispatchCapture:
         # (name, start event, end event) of its device spans, kept only
         # where `stream_device` is set (the engine's device is CUDA)
         self.stream: list[tuple] = []
+        # [span name, {key: value}] a `span_attrs` call, in call order
+        self.attrs: list[list] = []
         self.stream_device = (
             torch.device(device) if device is not None
             and torch.device(device).type == "cuda" else None)
@@ -270,6 +274,22 @@ def span(name: str, device: bool = False):
     if cap is None and not profiled:
         return _NO_SPAN
     return _Span(name, cap, device, profiled)
+
+
+def span_attrs(make) -> None:
+    """On a traced request, give the innermost open span of the thread's
+    capture the attributes `make()` returns ({key: value}), kept as one
+    [span name, attributes] entry a call, so a span that runs a stage
+    twice keeps both. A value may be a 0-d tensor, read when the engine
+    folds the capture into the trace. Without a capture `make` is not
+    called: one check."""
+    cap = _capture_tls.capture
+    if cap is None:
+        return
+    for row in reversed(cap.spans):
+        if row[2] is None:
+            cap.attrs.append([row[0], make()])
+            return
 
 
 # Optional tier-phase ledger: when a list is installed here, the tiered
